@@ -1,0 +1,56 @@
+"""Query primitives: the byte comparison of a suffix with a query, written
+batched over rows, and query packing.
+
+Port of ``suffix_tpu/ops/search.py`` (``_cmp_suffix_query``,
+``pack_queries``). Reference semantics (src/table.rs:197-293):
+``positions`` is the SA slice ``table[start:end]`` in SA order; an empty
+query or text matches nothing.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from suffix_torch.ops.padding import PAD
+
+
+def _cmp_suffix_query(text: torch.Tensor, n_text: int, sufi: torch.Tensor,
+                      queries: torch.Tensor, qlens: torch.Tensor):
+    """Compare suffix(text, sufi[r]) with queries[r, :qlens[r]] per row.
+
+    Returns (lt_full, gt_prefix), bool ``(Q,)``:
+      lt_full   — suffix <  query under full comparison (a proper-prefix
+                  suffix is smaller: sentinel PAD < any byte).
+      gt_prefix — suffix[:qlen] > query under prefix comparison (equality
+                  through qlen bytes means "starts with", NOT greater).
+    """
+    m = queries.shape[1]
+    cols = torch.arange(m, dtype=torch.int32, device=queries.device)
+    offs = sufi[:, None] + cols[None, :]
+    live = (offs >= 0) & (offs < min(n_text, text.shape[0]))
+    window = torch.where(
+        live, text[torch.clamp(offs, 0, text.shape[0] - 1).long()], PAD)
+    # First byte mismatch within each query's live range (m if none).
+    neq = (window != queries) & (cols[None, :] < qlens[:, None])
+    first = torch.where(neq, cols[None, :], m).min(dim=1).values
+    any_neq = first < m
+    at = torch.clamp(first, max=m - 1).long()[:, None]
+    w_at = window.gather(1, at)[:, 0]
+    q_at = queries.gather(1, at)[:, 0]
+    return any_neq & (w_at < q_at), any_neq & (w_at > q_at)
+
+
+def pack_queries(queries, pad_to: int | None = None):
+    """Encode a list of str/bytes queries into (Q, m) int32 + lengths."""
+    bs = [q.encode("utf-8") if isinstance(q, str) else bytes(q) for q in queries]
+    m = max([len(b) for b in bs] + [1])
+    if pad_to is not None:
+        m = max(m, pad_to)
+    out = np.full((len(bs), m), PAD, dtype=np.int32)
+    lens = np.zeros((len(bs),), dtype=np.int32)
+    for i, b in enumerate(bs):
+        if b:
+            out[i, : len(b)] = np.frombuffer(b, dtype=np.uint8)
+        lens[i] = len(b)
+    return out, lens
