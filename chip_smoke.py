@@ -7,22 +7,45 @@ Phases, each printing one JSON line:
 
 1. device   — CUDA present; torch/CUDA versions; card name and power limit.
 2. build    — compile the CUDA kernels from ``suffix_torch/csrc`` (nvcc).
-3. kernels  — each kernel against its plain PyTorch version on the card,
+3. kernels  — byte_histogram against its plain PyTorch version on the card,
               exact equality, and its time beside the plain version's, one
               PyTorch library call's and the memory bound.
+   probes   — copy_blocks, copy5_blocks and minmax_stages against their
+              plain versions at (2^15, 128) int32 from seed 3 (and
+              minmax_stages at 2 blocks), exact equality; then the
+              bandwidth battery (ops/probes.py), whose run is the probes'
+              path.
 4. golden   — SA-IS build of the 100 KB E. coli fixture against its golden
               SA digest.
-5. build_4m — the main path: SA-IS build of a 4 MiB random DNA text
-              (seed 0xD4A), certified by the O(n) suffix-array certificate.
-6. queries  — the main path continued: one count/positions batch of
-              262,144 14-byte queries drawn from the text, 4,096 random
-              (mostly absent) ones, 256 of 24 and of 48 bytes, and the empty
-              query, checked against the raw bytes; queries per second.
-7. profile  — torch.profiler over one more 4 MiB build and one 262,144-query
-              batch: device busy share, top kernels, SA-IS phase scopes.
+   golden_device — the default (doubling) build of both E. coli fixtures
+              against their golden SA and LCP digests and the JAX
+              package's route labels.
+5. build_4m — SA-IS build of a 4 MiB random DNA text (seed 0xD4A),
+              certified by the O(n) suffix-array certificate.
+6. queries  — one count/positions batch of 262,144 14-byte queries drawn
+              from the text, 4,096 random (mostly absent) ones, 256 of 24
+              and of 48 bytes, and the empty query, checked against the raw
+              bytes; queries per second.
+7. profile  — torch.profiler over one more 4 MiB SA-IS build and one
+              262,144-query batch: device busy share, top kernels, SA-IS
+              phase scopes.
+8. build_4m_device — the main path: the default build of the same text
+              with build stats, certified; the phase-6 query batch on it
+              (queries_device); then ``lcp_lens()``, 65,536 sampled
+              adjacent pairs checked against their byte-wise common prefix.
+9. build_64m_device — the default build of 64 MiB of random DNA, certified.
+   build_4m_device_repeats, build_4m_device_text — the default build's
+              other routes at 4 MiB, certified: DNA with planted 2 KiB
+              repeats (quadrupling rounds) and lowercase text with planted
+              repeats (two-phase).
+10. profile_build_4m_device(_repeats, _text), profile_lcp_4m —
+              torch.profiler over one more default build of each 4 MiB
+              text (P0..P6 and T1..T3 scopes) and one LCP.
 
-Kernel launch counters are set to 0 just before phase 5 and read just
-after phase 6. The line before the last is the kernel table
+byte_histogram's launch counter is set to 0 just before phase 5 and read
+just after phase 6 (its path is the SA-IS build); the probes' counters
+just before and after the battery. The doubling and LCP path runs library
+operations only. The line before the last is the kernel table
 (``{"kernels": [...]}``); the last line is the device summary. Any failed
 check raises, and the script exits non-zero without those two lines. It
 imports neither JAX nor the JAX package.
@@ -44,34 +67,43 @@ ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "fixtures" / "AP009048_100000.fasta"
 GOLDEN_SA_100K = (
     "d674074d481d76d7ac4e4ae4fe5df93a458a3b6fcb483ac92190babc52029694")
+# tests/test_golden.py: SA and LCP digests, and the JAX package's route
+# label for each fixture (device_build_closure, pinned on the CPU by
+# tests/test_torch_doubling.py).
+GOLDEN_DEVICE = {
+    "AP009048_10000": (
+        "335641df720e6a760955d891723fa48fc1554248ac89a44b1a3f4a36eaa0fdc3",
+        "427e0d914a5e7c62d4b06e9b360ced03da1889f4c3fc488169e3faf83d29be57",
+        "ladder(4w)"),
+    "AP009048_100000": (
+        GOLDEN_SA_100K,
+        "10992fb21e4db240c0024acd3661b1a3af997c0fb7a1591352a89e3e1aba373d",
+        "adaptive(3b x 30ch)"),
+}
+# The JAX package's route labels of the generated texts below (pinned on
+# the CPU by tests/test_torch_doubling.py).
+LABEL_DNA = "adaptive(3b x 40ch)"  # random DNA, 4 and 64 MiB
+LABEL_DNA_REPEATS = "adaptive(3b x 40ch)"
+LABEL_TEXT_REPEATS = "adaptive(5b x 24ch)+2phase"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SEED = 0xD4A
 N_TEXT = 1 << 22
+N_TEXT_64M = 1 << 26  # the size scripts/scale_probe.py measured
 N_QUERIES = 262144
 QLEN = 14
-# torch.profiler scopes of ops/sais.py::_derive_sa
+LCP_SAMPLES = 1 << 16
+PROBE_SHAPE = (1 << 15, 128)  # scripts/round3_study.py section_bw: 2^22 int32
+# torch.profiler scopes of ops/sais.py::_derive_sa and
+# ops/prefix_doubling.py
 SAIS_SCOPES = ("S1_classify_buckets", "S2_L_phase_round", "S3_S_phase_round")
+DOUBLING_SCOPES = ("P0_dense_pack", "P1_initial_sort", "P2_initial_rank",
+                   "P3_shift_ranks", "P4_round_sort", "P5_dense_rerank",
+                   "P6_route_home", "T1_to_positional", "T2_phase2_round",
+                   "T3_final_sa")
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def time_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median device time of ``fn`` over ``reps`` runs, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def overlapping_count(raw: bytes, q: bytes) -> int:
@@ -89,7 +121,33 @@ def dna_text(rng: np.random.Generator) -> bytes:
     return (rng.integers(0, 4, size=N_TEXT, dtype=np.uint8) + 97).tobytes()
 
 
-def check_histogram(torch, kernels, sais, raw: bytes) -> dict:
+def planted(rng: np.random.Generator, sigma: int, copies: int,
+            min_len: int, max_len: int) -> bytes:
+    """N_TEXT random bytes over ``sigma`` letters from ``a``, with
+    ``copies`` planted repeats of [min_len, max_len) bytes: ties that
+    survive the initial sort, so the doubling rounds run."""
+    t = rng.integers(0, sigma, size=N_TEXT, dtype=np.uint8) + 97
+    for _ in range(copies):
+        m = int(rng.integers(min_len, max_len))
+        src, dst = rng.integers(0, N_TEXT - m, size=2)
+        t[dst:dst + m] = t[src:src + m]
+    return t.tobytes()
+
+
+def dna_repeats() -> bytes:
+    """Random DNA with 64 planted 2 KiB copies: the classic adaptive
+    route with quadrupling rounds at full width."""
+    return planted(np.random.default_rng(SEED + 5), 4, 64, 2048, 2049)
+
+
+def text_repeats() -> bytes:
+    """Random lowercase (sigma 26) with 256 planted copies of 24-1023
+    bytes: the two-phase route, its tie mass under n/8 after the first
+    sort."""
+    return planted(np.random.default_rng(SEED + 6), 26, 256, 24, 1024)
+
+
+def check_histogram(torch, kernels, sais, time_ms, raw: bytes) -> dict:
     """Phase 3: byte_histogram against byte_histogram_plain on the card."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(0xC0FFEE)
@@ -119,12 +177,10 @@ def check_histogram(torch, kernels, sais, raw: bytes) -> dict:
     n = s_sym.shape[0]
     in_range = s_sym[(s_sym >= 0) & (s_sym < 258)]
     timing = {
-        "ms": time_ms(torch, lambda: kernels.byte_histogram(s_sym, 258)),
-        "plain_ms": time_ms(
-            torch, lambda: kernels.byte_histogram_plain(s_sym, 258)),
+        "ms": time_ms(lambda: kernels.byte_histogram(s_sym, 258)),
+        "plain_ms": time_ms(lambda: kernels.byte_histogram_plain(s_sym, 258)),
         # Yardstick only: one library call on the in-range values.
-        "library_ms": time_ms(
-            torch, lambda: torch.bincount(in_range, minlength=258)),
+        "library_ms": time_ms(lambda: torch.bincount(in_range, minlength=258)),
         # Each input read once, each output written once.
         "bound_ms": (4 * n + 4 * 258) / HBM_BYTES_PER_S * 1e3,
     }
@@ -133,10 +189,146 @@ def check_histogram(torch, kernels, sais, raw: bytes) -> dict:
     return {"max_abs_err": max_err, **timing}
 
 
-def profile(torch, label: str, fn) -> None:
+def check_probes(torch, probes) -> dict:
+    """Phase 3, probes: each probe kernel against its plain version, then
+    the bandwidth battery with the probes' counters from 0."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+
+    def make(shape):
+        vals = rng.integers(0, 1 << 22, size=shape, dtype=np.int32)
+        return torch.from_numpy(vals).to(dev)
+
+    def err(got, want):
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise AssertionError(f"shape {tuple(got.shape)} != "
+                                 f"{tuple(want.shape)}")
+        return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+    errs = {"copy_blocks": 0, "copy5_blocks": 0, "minmax_stages": 0}
+    cases = []
+    # The study's shape, then ragged lengths for the scalar tail.
+    for shape in (PROBE_SHAPE, (1,), (5,), (4099,)):
+        xs = [make(shape) for _ in range(5)]
+        errs["copy_blocks"] = max(errs["copy_blocks"], err(
+            probes.copy_blocks(xs[0]), probes.copy_blocks_plain(xs[0])))
+        got, want = probes.copy5_blocks(*xs), probes.copy5_blocks_plain(*xs)
+        errs["copy5_blocks"] = max(errs["copy5_blocks"], *(
+            err(g, w) for g, w in zip(got, want)))
+        cases.append(f"copy{shape}")
+    # (shape, stages, block_rows): the study's 16 blocks; 2 blocks, whose
+    # first 136 rows take the roll's wrap; shifts past the block; a width
+    # that is no multiple of the 8-column slab.
+    for shape, stages, block_rows in ((PROBE_SHAPE, 16, 2048),
+                                      ((4096, 128), 16, 2048),
+                                      ((64, 128), 16, 8),
+                                      ((4096, 20), 5, 1024)):
+        x = make(shape)
+        errs["minmax_stages"] = max(errs["minmax_stages"], err(
+            probes.minmax_stages(x, stages, block_rows),
+            probes.minmax_stages_plain(x, stages, block_rows)))
+        cases.append(f"minmax{shape}x{stages}/{block_rows}")
+    if any(errs.values()):
+        raise AssertionError(f"a probe kernel differs from its plain "
+                             f"version: {errs}")
+
+    # ---- the probes' path: counters from 0, the battery, counters read --
+    for fn in (probes.copy_blocks, probes.copy5_blocks, probes.minmax_stages):
+        fn.launches = 0
+    rows = probes.bandwidth_battery(dev)
+    launches = {fn.__name__: fn.launches for fn in (
+        probes.copy_blocks, probes.copy5_blocks, probes.minmax_stages)}
+    if not all(launches.values()):
+        raise AssertionError(f"a probe kernel never launched in the "
+                             f"battery: {launches}")
+    emit("probes", cases=cases, max_abs_err=errs, launches=launches,
+         battery=rows)
+    by_op = {r["op"]: r for r in rows}
+    return {name: {"max_abs_err": errs[name], "launches": launches[name],
+                   **by_op[op]}
+            for name, op in (("copy_blocks", "cuda_copy1"),
+                             ("copy5_blocks", "cuda_copy5"),
+                             ("minmax_stages", "cuda_minmax_x16"))}
+
+
+def sha(a: np.ndarray) -> str:
+    return hashlib.sha256(
+        np.ascontiguousarray(a, dtype=np.uint32).tobytes()).hexdigest()
+
+
+def check_golden_device(SuffixTable) -> None:
+    """Phase 4, golden_device: the default build of both fixtures against
+    the golden SA and LCP digests and the JAX route labels."""
+    for name, (sa_digest, lcp_digest, label) in GOLDEN_DEVICE.items():
+        data = (ROOT / "tests" / "fixtures" / f"{name}.fasta").read_bytes()
+        t0 = time.perf_counter()
+        st = SuffixTable.new(data, collect_stats=True)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lcp = st.lcp_lens()
+        lcp_s = time.perf_counter() - t0
+        if sha(st.table()) != sa_digest:
+            raise AssertionError(f"{name}: SA differs from the golden digest")
+        if sha(lcp) != lcp_digest:
+            raise AssertionError(f"{name}: LCP differs from the golden digest")
+        if st.build_stats["engine"] != label:
+            raise AssertionError(f"{name}: route {st.build_stats['engine']!r}"
+                                 f" != the JAX package's {label!r}")
+        emit("golden_device", fixture=name, build_s=build_s, lcp_s=lcp_s,
+             **st.build_stats)
+
+
+def check_lcp_sample(raw: bytes, table: np.ndarray, lcp: np.ndarray) -> int:
+    """LCP of LCP_SAMPLES random adjacent rank pairs against their
+    byte-wise common prefix on the host; returns the max LCP."""
+    t = np.frombuffer(raw, np.uint8)
+    n = t.size
+    if lcp.shape != (n,) or lcp.dtype != np.uint32 or lcp[0] != 0:
+        raise AssertionError("LCP array has the wrong shape, type or head")
+    ranks = np.random.default_rng(SEED + 3).integers(1, n, size=LCP_SAMPLES)
+    a = table[ranks - 1].astype(np.int64)
+    b = table[ranks].astype(np.int64)
+    want = np.zeros(ranks.size, np.int64)
+    active = np.ones(ranks.size, bool)
+    off = 0
+    while active.any():
+        idx = np.flatnonzero(active)
+        ia, ib = a[idx] + off, b[idx] + off
+        eq = ((ia < n) & (ib < n)
+              & (t[np.minimum(ia, n - 1)] == t[np.minimum(ib, n - 1)]))
+        want[idx[eq]] += 1
+        active[idx[~eq]] = False
+        off += 1
+    if not np.array_equal(lcp[ranks].astype(np.int64), want):
+        raise AssertionError("sampled LCPs differ from the byte-wise "
+                             "common prefix")
+    return int(lcp.max())
+
+
+def build_device(torch, SuffixTable, verify, raw: bytes, phase: str,
+                 label: str = LABEL_DNA):
+    """A default build with stats, its route label and certificate."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = SuffixTable.new(raw, collect_stats=True)
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if st.build_stats["engine"] != label:
+        raise AssertionError(f"route {st.build_stats['engine']!r} != the "
+                             f"JAX package's {label!r}")
+    t0 = time.perf_counter()
+    if not verify(raw, st.table()):
+        raise AssertionError(f"{phase}: table fails the certificate")
+    emit(phase, build_s=build_s, certificate_s=time.perf_counter() - t0,
+         peak_device_gib=peak / 2**30, **st.build_stats)
+    return st
+
+
+def profile(torch, label: str, fn, scope_names=SAIS_SCOPES) -> None:
     """Device busy share and top kernels of one call of ``fn``, from
-    ``torch.profiler``; the SA-IS derivation's scopes are reported with
-    their host and device spans."""
+    ``torch.profiler``; the scopes in ``scope_names`` are reported with
+    their host and device spans, and every scan kernel by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -151,7 +343,7 @@ def profile(torch, label: str, fn) -> None:
     events = prof.key_averages()
     scopes = {}
     for e in events:
-        if e.key in SAIS_SCOPES:
+        if e.key in scope_names:
             side = "device_ms" if e.device_type == DeviceType.CUDA else "host_ms"
             entry = scopes.setdefault(e.key, {"calls": e.count})
             total = (e.device_time_total if side == "device_ms"
@@ -168,10 +360,14 @@ def profile(torch, label: str, fn) -> None:
          scopes=scopes,
          top_kernels=[{"name": e.key[:100], "calls": e.count,
                        "device_ms": e.self_device_time_total / 1e3}
-                      for e in top])
+                      for e in top],
+         scan_kernels=[{"name": e.key[:160], "calls": e.count,
+                        "device_ms": e.self_device_time_total / 1e3}
+                       for e in kernels if "scan" in e.key.lower()])
 
 
-def check_queries(st, raw: bytes, rng: np.random.Generator) -> list[bytes]:
+def check_queries(st, raw: bytes, rng: np.random.Generator,
+                  phase: str = "queries") -> list[bytes]:
     """Phase 6: one batch of every query kind through the table."""
     n = len(raw)
 
@@ -224,12 +420,20 @@ def check_queries(st, raw: bytes, rng: np.random.Generator) -> list[bytes]:
         st.count_batch(drawn14)
         times.append(time.perf_counter() - t0)
     batch_s = statistics.median(times)
-    emit("queries", n_queries=len(queries), first_batch_s=first_s,
+    emit(phase, n_queries=len(queries), first_batch_s=first_s,
          sampled_checks=checked, matches=int(counts.sum()),
          absent_random14=int((counts[N_QUERIES:N_QUERIES + 4096] == 0).sum()),
          batch_262144x14_s=batch_s, batch_times_s=times,
          queries_per_s=N_QUERIES / batch_s)
     return drawn14
+
+
+def kernel_entry(name: str, source: str, replaces: str, r: dict) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
 
 def main() -> int:
@@ -241,7 +445,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from suffix_torch import SuffixTable
-    from suffix_torch.ops import kernels, sais
+    from suffix_torch.ops import kernels, probes, sais
     from suffix_torch.utils.verify import verify_suffix_array
 
     smi = subprocess.run(
@@ -264,16 +468,17 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     raw = dna_text(rng)
-    hist = check_histogram(torch, kernels, sais, raw)
+    hist = check_histogram(torch, kernels, sais, probes.time_ms, raw)
+    probe = check_probes(torch, probes)
 
     fixture = FIXTURE.read_bytes()
     st100 = SuffixTable.new(fixture, engine="sais", collect_stats=True)
-    digest = hashlib.sha256(st100.table().astype(np.uint32).tobytes())
-    if digest.hexdigest() != GOLDEN_SA_100K:
+    if sha(st100.table()) != GOLDEN_SA_100K:
         raise AssertionError("100 KB fixture SA differs from the golden digest")
     emit("golden", n=len(fixture), **st100.build_stats)
+    check_golden_device(SuffixTable)
 
-    # ---- the main path: counters from 0, build + queries, counters read --
+    # ---- the SA-IS path: counters from 0, build + queries, counters read -
     kernels.byte_histogram.launches = 0
     st = SuffixTable.new(raw, engine="sais", collect_stats=True)
     build_launches = kernels.byte_histogram.launches
@@ -292,20 +497,54 @@ def main() -> int:
     profile(torch, "build_4m",
             lambda: SuffixTable.new(raw, engine="sais"))
     profile(torch, "queries_262144x14", lambda: st.count_batch(drawn14))
+    del st
 
-    print(json.dumps({"kernels": [{
-        "name": "byte_histogram",
-        "route": "cuda",
-        "source": "suffix_torch/csrc/histogram.cu",
-        "replaces": "suffix_tpu/ops/pallas_kernels.py:51",
-        "launches": launches,
-        "max_abs_err": hist["max_abs_err"],
-        "ms": hist["ms"],
-        "plain_ms": hist["plain_ms"],
-        "bound_ms": hist["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": hist["library_ms"],
-    }]}), flush=True)
+    # ---- the main path: default build, queries, LCP ---------------------
+    st_d = build_device(torch, SuffixTable, verify_suffix_array, raw,
+                        "build_4m_device")
+    check_queries(st_d, raw, np.random.default_rng(SEED + 2),
+                  phase="queries_device")
+    t0 = time.perf_counter()
+    lcp = st_d.lcp_lens()
+    lcp_s = time.perf_counter() - t0
+    emit("lcp_4m", lcp_s=lcp_s, max_lcp=check_lcp_sample(raw, st_d.table(),
+                                                          lcp),
+         sampled_pairs=LCP_SAMPLES)
+
+    raw64 = (np.random.default_rng(SEED + 64).integers(
+        0, 4, size=N_TEXT_64M, dtype=np.uint8) + 97).tobytes()
+    build_device(torch, SuffixTable, verify_suffix_array, raw64,
+                 "build_64m_device")
+    del raw64
+
+    # The other routes of the default build at 4 MiB: rounds at full
+    # width, and the two-phase engine.
+    repeats = dna_repeats()
+    build_device(torch, SuffixTable, verify_suffix_array, repeats,
+                 "build_4m_device_repeats", LABEL_DNA_REPEATS)
+    text = text_repeats()
+    build_device(torch, SuffixTable, verify_suffix_array, text,
+                 "build_4m_device_text", LABEL_TEXT_REPEATS)
+
+    profile(torch, "build_4m_device", lambda: SuffixTable.new(raw),
+            DOUBLING_SCOPES)
+    profile(torch, "build_4m_device_repeats",
+            lambda: SuffixTable.new(repeats), DOUBLING_SCOPES)
+    profile(torch, "build_4m_device_text", lambda: SuffixTable.new(text),
+            DOUBLING_SCOPES)
+    profile(torch, "lcp_4m", st_d.lcp_lens, ())
+
+    print(json.dumps({"kernels": [
+        kernel_entry("byte_histogram", "suffix_torch/csrc/histogram.cu",
+                     "suffix_tpu/ops/pallas_kernels.py:51",
+                     {**hist, "launches": launches, "bound_by": "bytes"}),
+        kernel_entry("copy_blocks", "suffix_torch/csrc/probes.cu",
+                     "scripts/round3_study.py:114", probe["copy_blocks"]),
+        kernel_entry("copy5_blocks", "suffix_torch/csrc/probes.cu",
+                     "scripts/round3_study.py:140", probe["copy5_blocks"]),
+        kernel_entry("minmax_stages", "suffix_torch/csrc/probes.cu",
+                     "scripts/round3_study.py:169", probe["minmax_stages"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,6 +8,10 @@ Kernel inventory:
   / ``byte_histogram``). It feeds the SA-IS bucket layout
   (``ops/sais.py::_int_histogram``). The source note in the ``.cu`` file
   gives its bound and what the design does about it.
+- ``copy_blocks``, ``copy5_blocks`` and ``minmax_stages``
+  (``csrc/probes.cu``, wrappers in ``ops/probes.py``) replace the three
+  Pallas kernels of ``scripts/round3_study.py`` ``section_bw``: the
+  bandwidth battery.
 
 A wrapper runs its kernel for a CUDA tensor and the plain PyTorch version
 only for a CPU tensor: there is no fallback when a build or launch fails.
@@ -40,11 +44,19 @@ NB = 512  # most bins byte_histogram takes (the TPU kernel's padded count)
 
 # C entry points of each library: {source stem: {name: (argtypes, restype)}}.
 # Pointers and the stream are c_void_p, or ctypes would cut them to 32 bits.
+_P = ctypes.c_void_p
 _SIGNATURES = {
     "histogram": {
-        "byte_histogram_launch": ([ctypes.c_void_p, ctypes.c_int64,
-                                   ctypes.c_int, ctypes.c_void_p,
-                                   ctypes.c_void_p], ctypes.c_int),
+        "byte_histogram_launch": ([_P, ctypes.c_int64, ctypes.c_int, _P, _P],
+                                  ctypes.c_int),
+    },
+    "probes": {
+        "copy_blocks_launch": ([_P, _P, ctypes.c_int64, _P], ctypes.c_int),
+        "copy5_blocks_launch": ([_P] * 10 + [ctypes.c_int64, _P],
+                                ctypes.c_int),
+        "minmax_stages_launch": ([_P, _P, ctypes.c_int64, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, _P],
+                                 ctypes.c_int),
     },
 }
 

@@ -2,7 +2,8 @@
 
 Port of the flat-key route of ``suffix_tpu/ops/search2.py``:
 
-1. **Packed prefix keys** (built once per index): for every rank r, the
+1. **Packed prefix keys** (built once per index, ``packed_keys_rank_order``
+   — also the LCP engine's input): for every rank r, the
    first 18 bytes of its suffix packed as six int32 words of three 9-bit
    symbols (symbol = byte+1, 0 = past the end); batches with longer
    patterns widen to 12 words (36 bytes) on demand.
@@ -58,38 +59,22 @@ def _fence_stride(n_pad: int) -> int:
 
 def build_query_index(text: torch.Tensor, table: torch.Tensor, n_table: int,
                       key_words: int = KEY_WORDS, stride: int | None = None):
-    """(pk, pk_fence, pk_block): flat rank-order key words, fence words
-    (every ``stride``-th key) and the blocked layout (``None`` at stride
-    1), whose row b holds word w of ranks [b*stride, (b+1)*stride) at
-    columns [w*stride, (w+1)*stride).
+    """(pk, pk_fence, pk_block): flat rank-order key words
+    (``packed_keys_rank_order``), fence words (every ``stride``-th key)
+    and the blocked layout (``None`` at stride 1), whose row b holds word
+    w of ranks [b*stride, (b+1)*stride) at columns [w*stride, (w+1)*stride).
 
     ``text`` is the PAD-padded int32 text, ``table`` the padded int32
     suffix table (entries past ``n_table`` are ignored)."""
     n_pad = text.shape[0]
-    key_syms = 3 * key_words
-    # Symbols: byte+1 in [1, 256]; PAD (-1) and the appended zeros both
-    # map to 0, the end-of-text sentinel.
-    sym = (text + 1).to(I32)
-    sym_ext = torch.cat([sym, sym.new_zeros((key_syms,))])
-    s = [sym_ext[k:k + n_pad] for k in range(key_syms)]
-    mask_real = torch.arange(n_pad, device=text.device) < n_table
+    pk = packed_keys_rank_order(text, table, n_table, key_words)
     if stride is None:
         stride = _fence_stride(n_pad)
-    tab = table.long()
-    pk, pk_fence = [], []
-    pk_block = (torch.zeros((n_pad // stride, key_words * stride),
-                            dtype=I32, device=text.device)
-                if stride > 1 else None)
-    for w in range(key_words):
-        word = _pack3(s[3 * w], s[3 * w + 1], s[3 * w + 2])[tab]
-        word = torch.where(mask_real, word, PAD_KEY)
-        pk.append(word)
-        if stride > 1:
-            pk_fence.append(word[::stride].contiguous())
-            pk_block[:, w * stride:(w + 1) * stride] = word.view(-1, stride)
-        else:
-            pk_fence.append(word)
-    return tuple(pk), tuple(pk_fence), pk_block
+    if stride == 1:
+        return pk, pk, None
+    pk_fence = tuple(word[::stride].contiguous() for word in pk)
+    pk_block = torch.stack([word.view(-1, stride) for word in pk], dim=1)
+    return pk, pk_fence, pk_block.reshape(n_pad // stride, key_words * stride)
 
 
 def _batch_query_keys(queries: torch.Tensor, qlens: torch.Tensor,
@@ -229,3 +214,34 @@ def bounds_batch_merge(text: torch.Tensor, n_text: int, table: torch.Tensor,
     start = torch.where(empty, 0, start)
     count = torch.where(empty, 0, torch.clamp(end - start, min=0))
     return start, count
+
+
+def _isa_padded(table: torch.Tensor, n_table: int) -> torch.Tensor:
+    """Inverse SA (rank per position) of a padded table, int32: entries
+    past ``n_table`` keep their own index, as the JAX package's one-sort
+    form leaves them. A scatter here: the table is a permutation."""
+    n_pad = table.shape[0]
+    isa = torch.arange(n_pad, dtype=I32, device=table.device)
+    isa[table[:n_table].long()] = isa[:n_table].clone()
+    return isa
+
+
+def packed_keys_rank_order(text: torch.Tensor, table: torch.Tensor,
+                           n_table: int, key_words: int = KEY_WORDS):
+    """Flat rank-order packed keys: word w of rank r packs the symbols
+    (byte + 1; PAD and past the end are 0) at table[r] + 3w .. +3w+2.
+    The words are computed in position order and scattered to rank order
+    through the inverse SA; rows past ``n_table`` hold PAD_KEY. The query
+    index's keys and the LCP engine's input."""
+    n_pad = text.shape[0]
+    isa = _isa_padded(table, n_table).long()
+    sym = (text + 1).to(I32)
+    sym_ext = torch.cat([sym, sym.new_zeros((3 * key_words,))])
+    real = torch.arange(n_pad, device=text.device) < n_table
+    out = []
+    for w in range(key_words):
+        s = [sym_ext[k:k + n_pad] for k in range(3 * w, 3 * w + 3)]
+        word = torch.empty_like(sym)
+        word[isa] = _pack3(s[0], s[1], s[2])
+        out.append(torch.where(real, word, PAD_KEY))
+    return tuple(out)

@@ -13,9 +13,11 @@ Port of ``suffix_tpu/table.py`` with the same behavioural contract
 - ``repr`` mirrors the reference Debug impl (src/table.rs:296-312).
 
 The table carries its torch ``device``; ``device=None`` means CUDA and
-raises where there is none. Engines ported so far: ``"sais"`` (the
-recursive SA-IS pipeline, ops/sais.py) and ``"naive"``. Every query goes
-through the device merge-join engine (ops/search2.py).
+raises where there is none. Engines: ``"device"`` (the default, prefix
+doubling, ops/prefix_doubling.py), ``"sais"`` (the recursive SA-IS
+pipeline, ops/sais.py), ``"auto"`` and ``"naive"``. Every query goes
+through the device merge-join engine (ops/search2.py); ``lcp_lens``
+through ops/lcp.py.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import numpy as np
 import torch
 
 from suffix_torch.device import resolve_device
+from suffix_torch.ops import lcp as lcp_ops
+from suffix_torch.ops import prefix_doubling
 from suffix_torch.ops import sais
 from suffix_torch.ops import search2
 from suffix_torch.ops.naive import naive_table
@@ -36,13 +40,8 @@ from suffix_torch.ops.search import pack_queries
 
 MAX_TEXT_LEN = 0xFFFFFFFF  # u32 offsets, same cap as the reference
 
-# Engines of the JAX package that this port does not have yet, with the
-# ROADMAP.md item that ports each.
-_UNPORTED_ENGINES = {
-    "device": "Queue 1 item 3 (classic prefix-doubling engine)",
-    "native": "Queue 1 item 4 (native C++ SA-IS engine)",
-    "auto": "Queue 1 items 3 and 4 (doubling and native engines)",
-}
+_NATIVE_UNPORTED = ("the native C++ engine is not ported to suffix_torch "
+                    "yet; see ROADMAP.md Queue 1 item 4")
 
 
 def _as_bytes(text) -> tuple[bytes, bool]:
@@ -90,7 +89,7 @@ class SuffixTable:
         # Device-side query index, created lazily on the first query.
         self._dev_text = None
         self._dev_table = None
-        self._pk_fence = self._pk_block = None
+        self._pk = self._pk_fence = self._pk_block = None
         self._ext = None  # 12-word (fences, blocks), on the first long query
         self._init_lock = threading.RLock()  # guards the lazy device state
         self.build_stats = None
@@ -98,48 +97,66 @@ class SuffixTable:
     # ----------------------------------------------------------------- build
 
     @classmethod
-    def new(cls, text, engine: str = "sais", device=None,
-            collect_stats: bool = False) -> "SuffixTable":
+    def new(cls, text, engine: str = "device", padding: str = "pow2",
+            index_dtype: str = "u32", collect_stats: bool = False,
+            device=None) -> "SuffixTable":
         """Build the suffix table on ``device`` (``None`` = CUDA).
 
-        Engines: ``"sais"`` (SA-IS on the device, ops/sais.py) and
-        ``"naive"`` (the host oracle). ``collect_stats=True`` attaches a
-        dict as ``build_stats``: engine, sizes, elapsed seconds and, for
-        ``"sais"``, the recursion depth and the rounds of each phase.
+        Engines (all give the same, unique suffix array):
+
+        - ``"device"`` (default): prefix doubling, ops/prefix_doubling.py,
+          with the JAX package's routes (periodic, adaptive, two-phase,
+          ladder); ``padding`` and ``index_dtype`` ("u32"/"u64"/"auto")
+          apply to it;
+        - ``"sais"``: the SA-IS pipeline on the device, ops/sais.py;
+        - ``"auto"``: the JAX package takes its native engine for small
+          texts when that library is present; the native engine is not
+          ported, so ``"auto"`` is ``"device"`` here;
+        - ``"naive"``: the host oracle.
+
+        ``"native"`` raises ``NotImplementedError``. ``collect_stats=True``
+        attaches a dict as ``build_stats``: for ``"device"`` the keys of
+        ``suffix_tpu/utils/metrics.py::build_stats`` (route label, family,
+        h0, sigma, rounds, h_final, tie trajectory or the two-phase switch
+        state); for ``"sais"`` the recursion depth and rounds per phase.
         """
         dev = resolve_device(device)
-        if engine in _UNPORTED_ENGINES:
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported to suffix_torch yet; see "
-                f"ROADMAP.md {_UNPORTED_ENGINES[engine]}")
-        if engine not in ("sais", "naive"):
+        if engine == "native":
+            raise NotImplementedError(f"engine='native': {_NATIVE_UNPORTED}")
+        if engine == "auto":
+            engine = "device"
+        if engine not in ("device", "sais", "naive"):
             raise ValueError(f"unknown engine: {engine!r}")
         raw, was_str = _as_bytes(text)
         if len(raw) > MAX_TEXT_LEN:
             raise ValueError("text is too large (max 2^32 - 1 bytes)")
+        n = len(raw)
+        stats = ({"schema": 1, "n_bytes": n, "index_dtype": index_dtype,
+                  "device": _device_name(dev)} if collect_stats else None)
         counters: dict = {}
         t0 = time.perf_counter()
-        if engine == "sais":
+        if engine == "device":
+            table = prefix_doubling.suffix_array_bytes(
+                raw, padding=padding, index_dtype=index_dtype, device=dev,
+                stats=stats)
+        elif engine == "sais":
             table = sais.suffix_array_sais_recursive(raw, stats=counters,
                                                      device=dev)
         else:
             table = naive_table(raw)
         dt = time.perf_counter() - t0
         st = cls(raw, table, _was_str=was_str, device=dev)
-        if collect_stats:
-            n = len(raw)
-            st.build_stats = {
-                "schema": 1, "n_bytes": n, "n_pad": bucket_size(max(n, 1)),
-                "index_dtype": "u32", "device": _device_name(dev),
-                "engine": "sais-device" if engine == "sais" else "naive",
-                "engine_family": engine,
-                "elapsed_s": round(dt, 6),
-                "bytes_per_s": round(n / max(dt, 1e-12), 1),
-            }
+        if collect_stats and engine != "device":
+            stats.update(
+                n_pad=bucket_size(max(n, 1)), index_dtype="u32",
+                engine="sais-device" if engine == "sais" else "naive",
+                engine_family=engine, elapsed_s=round(dt, 6),
+                bytes_per_s=round(n / max(dt, 1e-12), 1))
             if engine == "sais":
-                st.build_stats["recursion_depth"] = counters.get("depth", 0)
+                stats["recursion_depth"] = counters.get("depth", 0)
                 for key in ("l_rounds", "s_rounds", "substring_rounds"):
-                    st.build_stats[key] = counters.get(key, 0)
+                    stats[key] = counters.get(key, 0)
+        st.build_stats = stats
         return st
 
     @classmethod
@@ -193,6 +210,26 @@ class SuffixTable:
     def suffix_bytes(self, i: int) -> bytes:
         return self._raw[int(self._table[i]):]
 
+    # ------------------------------------------------------------------- lcp
+
+    def lcp_lens(self, method: str = "auto") -> np.ndarray:
+        """LCP array (uint32), reference definition src/table.rs:348-361.
+
+        ``method``: "auto" (the keyed device refine, routed to the host
+        Kasai on survivor-dense corpora, ops/lcp.py), "device" (the
+        unbounded keyed refine) or "kasai" (host numpy). "native" raises:
+        that engine is not ported. All give the same array."""
+        if method in ("auto", "device"):
+            # Reuse the query index's packed keys when already built.
+            pk = self._pk if self._dev_text is not None else None
+            return lcp_ops.lcp_from_sa(self._bytes, self._table, pk=pk,
+                                       method=method, device=self.device)
+        if method == "kasai":
+            return lcp_ops.kasai_host(self._bytes, self._table)
+        if method == "native":
+            raise NotImplementedError(f"method='native': {_NATIVE_UNPORTED}")
+        raise ValueError(f"unknown LCP method: {method!r}")
+
     # ----------------------------------------------------------------- query
 
     def _ensure_device(self):
@@ -214,8 +251,8 @@ class SuffixTable:
             tab[:n] = self._table
             dev_text = torch.from_numpy(t).to(self.device)
             self._dev_table = torch.from_numpy(tab).to(self.device)
-            _, self._pk_fence, self._pk_block = search2.build_query_index(
-                dev_text, self._dev_table, n)
+            self._pk, self._pk_fence, self._pk_block = (
+                search2.build_query_index(dev_text, self._dev_table, n))
             # Published last: readiness is keyed off _dev_text.
             self._dev_text = dev_text
 

@@ -1,7 +1,8 @@
 """Index checkpoint / resume in the JAX package's ``.npz`` format
 (``suffix_tpu/utils/checkpoint.py``, format_version 1): ``text``,
-``table``, ``was_str`` and, when given, ``build_stats`` as its JSON text.
-An index saved by either package loads in the other.
+``table``, ``was_str`` and, when given, the ``lcp`` array (uint32) and
+``build_stats`` as its JSON text. An index saved by either package loads
+in the other.
 """
 
 from __future__ import annotations
@@ -16,13 +17,16 @@ from suffix_torch.table import SuffixTable
 FORMAT_VERSION = 1
 
 
-def save_index(path: str, st, *, build_stats: dict | None = None) -> None:
+def save_index(path: str, st, *, lcp: np.ndarray | None = None,
+               build_stats: dict | None = None) -> None:
     payload = {
         "format_version": np.int64(FORMAT_VERSION),
         "text": np.frombuffer(st.text_bytes(), dtype=np.uint8),
         "table": st.table(),
         "was_str": np.bool_(isinstance(st.text(), str)),
     }
+    if lcp is not None:
+        payload["lcp"] = np.asarray(lcp, dtype=np.uint32)
     if build_stats is not None:
         text = json.dumps(build_stats, sort_keys=True, default=str)
         payload["build_stats"] = np.frombuffer(text.encode("utf-8"),

@@ -1,0 +1,508 @@
+"""The port's default build (``suffix_torch/ops/prefix_doubling.py``,
+``engine="device"``) against the JAX package's
+(``suffix_tpu/ops/prefix_doubling.py``) and the naive oracle.
+
+Every corpus class of the JAX package's own tests (``test_adaptive_pack``,
+``test_two_phase``, ``test_periodic``, ``test_conformance``) goes through
+both packages with the same routing gates: the suffix arrays and the route
+labels must be equal. ``collect_stats`` is held against
+``suffix_tpu.utils.metrics.build_stats``. The patched route is not ported
+and must raise. JAX is imported by a fixture, so that the CUDA legs
+(marker ``gpu``) run on a machine without it:
+``python -m pytest tests/test_torch_doubling.py -m gpu --noconftest``.
+Tolerance: exact equality (every array is integer).
+"""
+
+import hashlib
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+from hypothesis import given, settings, strategies as st
+
+torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs in several processes at once, and
+# a thread a core each makes them contend.
+torch.set_num_threads(1)
+
+from suffix_torch import SuffixTable  # noqa: E402
+from suffix_torch.ops import prefix_doubling as pd  # noqa: E402
+from suffix_torch.ops.naive import naive_table  # noqa: E402
+from suffix_torch.utils.verify import verify_suffix_array  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FIXTURES = ROOT / "tests" / "fixtures"
+GOLDEN_SA = {  # tests/test_golden.py
+    "AP009048_10000":
+        "335641df720e6a760955d891723fa48fc1554248ac89a44b1a3f4a36eaa0fdc3",
+    "AP009048_100000":
+        "d674074d481d76d7ac4e4ae4fe5df93a458a3b6fcb483ac92190babc52029694",
+}
+
+
+@pytest.fixture(scope="module")
+def jpd():
+    """suffix_tpu's prefix_doubling module."""
+    pytest.importorskip("jax")
+    from suffix_tpu.ops import prefix_doubling
+
+    return prefix_doubling
+
+
+@pytest.fixture
+def gates(monkeypatch, jpd):
+    """Set routing gates on both packages at once."""
+
+    def set_gates(**values):
+        for mod in (pd, jpd):
+            for name, value in values.items():
+                monkeypatch.setattr(mod, name, value)
+
+    return set_gates
+
+
+def _port_sa(arr: np.ndarray, **kw) -> np.ndarray:
+    return pd.suffix_array_bytes(arr, device="cpu", **kw)
+
+
+def _assert_parity(jpd, arr: np.ndarray, oracle: bool = True) -> str:
+    """Port and JAX agree on the SA and the route label; returns it."""
+    n_pad = pd.bucket_size(arr.size)
+    _, label = pd.device_build_closure(arr, n_pad, device="cpu")
+    _, jlabel = jpd.device_build_closure(arr, n_pad)
+    assert label == jlabel
+    got = _port_sa(arr)
+    assert got.dtype == np.uint32
+    assert np.array_equal(got, jpd.suffix_array_bytes(arr)), label
+    if oracle:
+        assert np.array_equal(got, naive_table(arr.tobytes())), label
+    return label
+
+
+def _tiled(block: bytes, n: int) -> np.ndarray:
+    b = np.frombuffer(block, np.uint8)
+    return np.tile(b, n // b.size + 1)[:n]
+
+
+def _planted(rng, n):
+    """tests/test_two_phase.py sparse_repeats."""
+    base = rng.integers(0, 26, n, dtype=np.uint8) + 97
+    for _ in range(max(1, n // 200)):
+        src = int(rng.integers(0, max(1, n - 64)))
+        dst = int(rng.integers(0, max(1, n - 64)))
+        base[dst:dst + 24] = base[src:src + 24]
+    return base
+
+
+def _textish(rng, n):
+    from suffix_tpu.utils.textgen import text_corpus
+
+    return text_corpus(max(n, 64), seed=int(rng.integers(1 << 30)),
+                       boilerplate_bytes=64, boilerplate_copies=4)[:n]
+
+
+ADAPTIVE_CASES = {  # tests/test_adaptive_pack.py
+    "dna": lambda rng, n: rng.integers(0, 4, n, dtype=np.uint8) + 97,
+    "binary_alpha": lambda rng, n: rng.integers(0, 2, n, dtype=np.uint8) + 65,
+    "sigma17": lambda rng, n: rng.integers(100, 117, n, dtype=np.uint8),
+    "all_equal": lambda rng, n: np.full(n, 97, dtype=np.uint8),
+    "period7": lambda rng, n: _tiled(b"abcabz!", n),
+}
+
+TWO_PHASE_CASES = {  # tests/test_two_phase.py
+    "text_like": _textish,
+    "dna": lambda rng, n: rng.integers(0, 4, n, dtype=np.uint8) + 97,
+    "tiled": lambda rng, n: _tiled(b"abracadabra-zyx!", n),
+    "all_equal": lambda rng, n: np.full(n, 97, np.uint8),
+    "binary": lambda rng, n: rng.integers(0, 2, n, dtype=np.uint8) + 48,
+    "random_bytes": lambda rng, n: rng.integers(0, 256, n, dtype=np.uint8),
+    "sparse_repeats": _planted,
+}
+
+
+@pytest.mark.parametrize("name", sorted(ADAPTIVE_CASES))
+def test_adaptive_parity(jpd, gates, name):
+    gates(ADAPTIVE_PACK_MIN=16)
+    rng = np.random.default_rng(len(name))
+    for n in (31, 300, 2048, 5000):
+        _assert_parity(jpd, ADAPTIVE_CASES[name](rng, n), oracle=n <= 2048)
+
+
+@pytest.mark.parametrize("name", sorted(TWO_PHASE_CASES))
+def test_two_phase_parity(jpd, gates, name):
+    gates(ADAPTIVE_PACK_MIN=16, TWO_PHASE_MIN=16, TWO_PHASE_FORCE=True)
+    rng = np.random.default_rng(len(name) + 100)
+    for n in (33, 500, 2048, 6000):
+        label = _assert_parity(jpd, TWO_PHASE_CASES[name](rng, n),
+                               oracle=n <= 2048)
+        assert label.endswith("+2phase") or label.startswith("periodic")
+
+
+def test_two_phase_engages(gates, monkeypatch):
+    gates(ADAPTIVE_PACK_MIN=16, TWO_PHASE_MIN=16, TWO_PHASE_FORCE=True)
+    rounds = []
+    orig = pd._phase2_round
+
+    def spy(*a, **k):
+        rounds.append(True)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(pd, "_phase2_round", spy)
+    arr = _planted(np.random.default_rng(5), 4096)
+    assert np.array_equal(_port_sa(arr), naive_table(arr.tobytes()))
+    assert rounds, "phase 2 never ran on a sparse-repeat corpus"
+
+
+def test_two_phase_tie_mass_not_tie_count(jpd, gates):
+    """tests/test_two_phase.py: all-size-2 tie groups."""
+    gates(ADAPTIVE_PACK_MIN=16, TWO_PHASE_MIN=16, TWO_PHASE_FORCE=True)
+    rng = np.random.default_rng(8)
+    pieces = []
+    for _ in range(300):
+        b = bytes(rng.integers(0, 4, size=24, dtype=np.uint8) + 97)
+        f1 = bytes(rng.integers(0, 26, size=8, dtype=np.uint8) + 65)
+        f2 = bytes(rng.integers(0, 26, size=8, dtype=np.uint8) + 65)
+        pieces += [b, f1, b, f2]
+    _assert_parity(jpd, np.frombuffer(b"".join(pieces), np.uint8),
+                   oracle=False)
+
+
+PERIODIC_CASES = [  # tests/test_periodic.py
+    (b"a", 300), (b"ab", 257), (b"abc", 300), (b"aab", 1000),
+    (b"abracadabra-zyx!", 16 * 40 + 7), (b"x" * 63 + b"y", 64 * 12 + 31),
+    (bytes(range(97, 104)), 7 * 40 + 5), (bytes([0, 255, 3, 17, 0]), 322),
+    (b"abab", 4 * 80 + 3), (b"mississippi-", 12 * 30 + 5),
+]
+
+
+@pytest.mark.parametrize("block,n", PERIODIC_CASES,
+                         ids=[f"{b[:6]!r}x{n}" for b, n in PERIODIC_CASES])
+def test_periodic_parity(jpd, gates, block, n):
+    gates(ADAPTIVE_PACK_MIN=16)
+    label = _assert_parity(jpd, _tiled(block, n))
+    assert label.startswith("periodic(q=")
+
+
+def test_periodic_long_period_and_fallthroughs(jpd, gates):
+    gates(ADAPTIVE_PACK_MIN=16)
+    rng = np.random.default_rng(997)
+    block = bytes(rng.integers(0, 26, 997, dtype=np.uint8) + 97)
+    assert _assert_parity(jpd, _tiled(block, 997 * 9 + 311)) == \
+        "periodic(q=997)"
+    assert pd._exact_min_period(_tiled(b"abab", 323)) == 2
+    # One flipped byte: no exact period; the JAX package takes its patched
+    # engine, which the port refuses.
+    flipped = _tiled(bytes(rng.integers(0, 4, 64, dtype=np.uint8) + 97),
+                     64 * 20).copy()
+    flipped[700] ^= 1
+    assert pd._exact_min_period(flipped) is None
+    n_pad = pd.bucket_size(flipped.size)
+    assert jpd.device_build_closure(flipped, n_pad)[1].startswith("patched(")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        pd.device_build_closure(flipped, n_pad, device="cpu")
+    # Too few tiles for the closed form.
+    few = _tiled(bytes(rng.integers(0, 4, 300, dtype=np.uint8) + 97), 1200)
+    assert not _assert_parity(jpd, few).startswith("periodic")
+
+
+def test_periodic_at_scale_matches_doubling(jpd, gates):
+    gates(ADAPTIVE_PACK_MIN=16)
+    rng = np.random.default_rng(1021)
+    arr = _tiled(bytes(rng.integers(0, 4, 1021, dtype=np.uint8) + 97),
+                 1021 * 60 + 123)
+    assert _assert_parity(jpd, arr, oracle=False) == "periodic(q=1021)"
+    assert verify_suffix_array(arr, _port_sa(arr))
+
+
+def test_adaptive_plan_matches_jax(jpd):
+    rng = np.random.default_rng(3)
+    block = rng.integers(0, 4, 100_001, dtype=np.uint8) + 97
+    corpora = [
+        (rng.integers(0, 4, 4096, dtype=np.uint8) + 97, 1 << 22),
+        (rng.integers(0, 256, 65536, dtype=np.uint8), 1 << 26),
+        (np.tile(block, 42)[:1 << 22], 1 << 22),  # the repeat lever
+        (np.tile(block[:1000], 50), 1 << 16),
+    ]
+    for arr, n_pad in corpora:
+        got = pd._adaptive_plan(arr, n_pad, with_meta=True)
+        want = jpd._adaptive_plan(arr, n_pad, with_meta=True)
+        assert got[1:] == want[1:]
+        if want[0] is None:
+            assert got[0] is None
+        else:
+            assert np.array_equal(got[0][0], want[0][0])
+            assert got[0][1:] == want[0][1:]
+        assert (pd._repeat_lcp_lower_bound(arr)
+                == jpd._repeat_lcp_lower_bound(arr))
+        got_probe, want_probe = pd._period_probe(arr), jpd._period_probe(arr)
+        for g, w in zip(got_probe, want_probe):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert g[:3] == w[:3]
+
+
+def _near_periodic() -> np.ndarray:
+    """>= ADAPTIVE_PACK_MIN bytes, a 1000-byte period with two defects:
+    the JAX package routes it to its patched engine."""
+    rng = np.random.default_rng(11)
+    arr = _tiled(bytes(rng.integers(0, 26, 1000, dtype=np.uint8) + 97),
+                 (1 << 17) + 500).copy()
+    arr[50_000] ^= 1
+    return arr
+
+
+def test_patched_route_raises(jpd):
+    arr = _near_periodic()
+    n_pad = pd.bucket_size(arr.size)
+    _, jlabel = jpd.device_build_closure(arr, n_pad)
+    assert jlabel.startswith("patched(")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        pd.device_build_closure(arr, n_pad, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        SuffixTable.new(arr.tobytes(), device="cpu")
+
+
+@pytest.mark.parametrize("padding", ["pow2", "fine"])
+def test_padding_matches_jax(jpd, padding):
+    rng = np.random.default_rng(7)
+    for n in (17, 1100, 4500):
+        arr = rng.integers(0, 3, n, dtype=np.uint8) + 97
+        got = _port_sa(arr, padding=padding)
+        assert np.array_equal(got, jpd.suffix_array_bytes(arr,
+                                                          padding=padding))
+
+
+@pytest.mark.parametrize("name,arr,gate", [
+    ("ladder", np.frombuffer(b"banana-mississippi" * 40, np.uint8), {}),
+    ("adaptive", np.random.default_rng(1).integers(
+        97, 101, 600, dtype=np.uint8), {"ADAPTIVE_PACK_MIN": 16}),
+    ("two_phase", _planted(np.random.default_rng(2), 1500),
+     {"ADAPTIVE_PACK_MIN": 16, "TWO_PHASE_MIN": 16,
+      "TWO_PHASE_FORCE": True}),
+    ("periodic", _tiled(b"abcz", 402), {"ADAPTIVE_PACK_MIN": 16}),
+])
+def test_u64_against_u32_and_oracle(monkeypatch, name, arr, gate):
+    for key, value in gate.items():
+        monkeypatch.setattr(pd, key, value)
+    got = _port_sa(arr, index_dtype="u64")
+    assert got.dtype == np.uint64
+    assert np.array_equal(got, _port_sa(arr).astype(np.uint64))
+    assert np.array_equal(got.astype(np.uint32), naive_table(arr.tobytes()))
+    assert _port_sa(arr, index_dtype="auto").dtype == np.uint32
+
+
+def test_index_dtype_errors():
+    with pytest.raises(ValueError, match="index_dtype"):
+        _port_sa(np.zeros(4, np.uint8), index_dtype="u16")
+    assert _port_sa(np.zeros(0, np.uint8), index_dtype="u64").dtype == \
+        np.uint64
+
+
+@pytest.mark.parametrize("collect_stats", [False, True])
+def test_table_index_dtype_errors(collect_stats):
+    with pytest.raises(ValueError, match="index_dtype"):
+        SuffixTable.new(b"banana", device="cpu", index_dtype="bogus",
+                        collect_stats=collect_stats)
+
+
+DIRECTED = ["apple", "banana", "mississippi", "tgtgtgtgcaccg", "", "a", "ab",
+            "aa", "\x00", "☃abc☃"]  # tests/test_conformance.py
+
+
+@pytest.mark.parametrize("text", DIRECTED, ids=lambda t: repr(t)[:20])
+def test_directed_matches_naive(text):
+    got = SuffixTable.new(text, device="cpu")
+    assert got == SuffixTable.new_naive(text, device="cpu")
+
+
+@settings(max_examples=150, deadline=None)
+@given(st.binary(max_size=96))
+def test_prop_bytes_match_naive(b):
+    assert np.array_equal(SuffixTable.new(b, device="cpu").table(),
+                          naive_table(b))
+
+
+@settings(max_examples=80, deadline=None)
+@given(st.text(alphabet="ab\x00", max_size=48))
+def test_prop_small_alphabet(s):
+    assert np.array_equal(SuffixTable.new(s, device="cpu").table(),
+                          SuffixTable.new_naive(s, device="cpu").table())
+
+
+@settings(max_examples=30, deadline=None)
+@given(st.binary(min_size=1, max_size=40),
+       st.integers(min_value=280, max_value=1500))
+def test_prop_tiled_forced_gate(block, n):
+    # tests/test_periodic.py: the periodic, adaptive or ladder route,
+    # whichever the block's structure picks.
+    orig = pd.ADAPTIVE_PACK_MIN
+    pd.ADAPTIVE_PACK_MIN = 16
+    try:
+        arr = _tiled(block, n)
+        assert np.array_equal(_port_sa(arr), naive_table(arr.tobytes()))
+    finally:
+        pd.ADAPTIVE_PACK_MIN = orig
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_SA))
+def test_golden_sa(name):
+    data = (FIXTURES / f"{name}.fasta").read_bytes()
+    table = SuffixTable.new(data, device="cpu").table()
+    assert hashlib.sha256(table.astype(np.uint32).tobytes()).hexdigest() == \
+        GOLDEN_SA[name]
+
+
+def test_table_matches_jax(jpd, dna_10k):
+    import suffix_tpu
+
+    for text in (dna_10k, "the quick brown fox was quick.", b"\xff" * 33):
+        assert np.array_equal(SuffixTable.new(text, device="cpu").table(),
+                              suffix_tpu.SuffixTable.new(text).table())
+
+
+STATS_CASES = [
+    ("fixture_10k", lambda: (FIXTURES / "AP009048_10000.fasta").read_bytes(),
+     {}),
+    ("fixture_100k", lambda: (FIXTURES / "AP009048_100000.fasta")
+     .read_bytes(), {}),
+    ("two_phase", lambda: _planted(np.random.default_rng(4), 3000).tobytes(),
+     {"ADAPTIVE_PACK_MIN": 16, "TWO_PHASE_MIN": 16,
+      "TWO_PHASE_FORCE": True}),
+    ("two_phase_ladder", lambda: np.random.default_rng(6).integers(
+        0, 256, 3000, dtype=np.uint8).tobytes(),
+     {"TWO_PHASE_MIN": 16, "TWO_PHASE_FORCE": True}),
+    ("periodic", lambda: _tiled(b"abracadabra-zyx!", 700).tobytes(),
+     {"ADAPTIVE_PACK_MIN": 16}),
+    ("empty", lambda: b"", {}),
+]
+
+
+@pytest.mark.parametrize("name,text,gate", STATS_CASES,
+                         ids=[c[0] for c in STATS_CASES])
+def test_collect_stats_match_jax(jpd, gates, name, text, gate):
+    from suffix_tpu.utils.metrics import build_stats
+
+    gates(**gate)
+    raw = text()
+    st_ = SuffixTable.new(raw, device="cpu", collect_stats=True)
+    sa, want = build_stats(raw)
+    got = dict(st_.build_stats)
+    assert np.array_equal(st_.table(), sa)
+    for key in ("elapsed_s", "bytes_per_s", "device"):
+        assert key in got
+        got.pop(key)
+        want.pop(key)
+    assert got == want
+
+
+def test_last_flag_index_matches_cummax(jpd):
+    import jax
+
+    rng = np.random.default_rng(12)
+    for n in (1, 7, 1000):
+        flag = rng.random(n) < 0.2
+        flag[0] = True
+        j = np.arange(n)
+        want = np.maximum.accumulate(np.where(flag, j, 0))
+        got = pd._last_flag_index(torch.from_numpy(flag)).numpy()
+        assert np.array_equal(got, want)
+        assert np.array_equal(got, np.asarray(jax.lax.cummax(
+            jax.numpy.asarray(np.where(flag, j, 0).astype(np.int32)))))
+
+
+def test_to_positional_matches_jax(jpd):
+    rng = np.random.default_rng(13)
+    n = 4096
+    dense = np.sort(rng.integers(0, 900, n)).astype(np.int32)
+    dense -= dense[0]
+    sa = rng.permutation(n).astype(np.int32)
+    rank, tied, mass = pd._to_positional(torch.from_numpy(dense),
+                                         torch.from_numpy(sa))
+    j_rank, j_tied, j_mass = jpd._to_positional(jpd.jnp.asarray(dense),
+                                                jpd.jnp.asarray(sa))
+    assert mass == int(j_mass) > 0
+    assert np.array_equal(rank.numpy(), np.asarray(j_rank))
+    # Tied ids first, untied after; the order inside each part is free.
+    tied, j_tied = tied.numpy(), np.asarray(j_tied)
+    assert np.array_equal(np.sort(tied[:mass]), np.sort(j_tied[:mass]))
+    assert np.array_equal(np.sort(tied[mass:]), np.sort(j_tied[mass:]))
+
+
+def test_word_packing_matches_jax(jpd):
+    rng = np.random.default_rng(14)
+    text = np.full(256, -1, np.int32)
+    text[:200] = rng.integers(0, 256, 200)
+    for iw in (2, 3, 4):
+        got = pd._initial_words(torch.from_numpy(text), iw)
+        want = jpd._initial_words(jpd.jnp.asarray(text), iw)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+    codes = np.zeros(256, np.int32)
+    codes[:200] = rng.integers(1, 5, 200)
+    for n_words, bits, cpw in ((4, 3, 10), (2, 5, 6), (3, 2, 15)):
+        got = pd._packed_words(torch.from_numpy(codes), n_words, bits, cpw)
+        want = jpd._packed_words(jpd.jnp.asarray(codes), n_words, bits, cpw)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+    for n_pad in (16, 1 << 20, 1 << 21, 1 << 24, 1 << 26):
+        assert pd.pick_init_words(n_pad) == jpd.pick_init_words(n_pad)
+
+
+def test_invert_permutation():
+    sa = torch.tensor([2, 0, 3, 1], dtype=torch.int32)
+    vals = torch.tensor([10, 11, 12, 13], dtype=torch.int32)
+    assert pd._invert_permutation(sa, vals).tolist() == [11, 13, 10, 12]
+
+
+def test_chip_smoke_labels_match_jax(jpd):
+    """The route labels chip_smoke.py pins for its generated texts and
+    the fixtures are the JAX package's."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(str(ROOT))
+    dna = np.frombuffer(cs.dna_text(np.random.default_rng(cs.SEED)),
+                        np.uint8)
+    cases = [(dna, cs.LABEL_DNA),
+             (np.frombuffer(cs.dna_repeats(), np.uint8), cs.LABEL_DNA_REPEATS),
+             (np.frombuffer(cs.text_repeats(), np.uint8),
+              cs.LABEL_TEXT_REPEATS)]
+    for name, (_, _, label) in cs.GOLDEN_DEVICE.items():
+        cases.append((np.frombuffer((FIXTURES / f"{name}.fasta").read_bytes(),
+                                    np.uint8), label))
+    for arr, label in cases:
+        n_pad = pd.bucket_size(arr.size)
+        assert jpd.device_build_closure(arr, n_pad)[1] == label
+        assert pd.device_build_closure(arr, n_pad, device="cpu")[1] == label
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+CUDA_CORPORA = {
+    "ladder": lambda: b"banana-mississippi" * 300,
+    "adaptive": lambda: (np.random.default_rng(1).integers(
+        0, 4, (1 << 17) + 9, dtype=np.uint8) + 97).tobytes(),
+    "periodic": lambda: _tiled(b"abracadabra-zyx!", (1 << 17) + 3).tobytes(),
+    "two_phase": lambda: _planted(np.random.default_rng(2),
+                                  (1 << 20) + 77).tobytes(),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CUDA_CORPORA))
+def test_cuda_default_build(cuda_device, name):
+    raw = CUDA_CORPORA[name]()
+    st_ = SuffixTable.new(raw, device=cuda_device, collect_stats=True)
+    cpu = SuffixTable.new(raw, device="cpu", collect_stats=True)
+    assert st_.build_stats["engine"] == cpu.build_stats["engine"]
+    assert np.array_equal(st_.table(), cpu.table())
+    assert verify_suffix_array(raw, st_.table())
+    u64 = pd.suffix_array_bytes(raw, index_dtype="u64", device=cuda_device)
+    assert np.array_equal(u64, st_.table().astype(np.uint64))

@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs in several processes at once, and
+# a thread a core each makes them contend.
+torch.set_num_threads(1)
 
 from suffix_torch import SuffixTable  # noqa: E402
 from suffix_torch.ops.kernels import (  # noqa: E402

@@ -1,0 +1,244 @@
+"""The bandwidth battery's probes (``suffix_torch/ops/probes.py``): each
+plain version against the Pallas kernel of ``scripts/round3_study.py``
+``section_bw``, copied here and run with ``interpret=True`` at
+(4096, 128) int32: 2 blocks of (2048, 128) for the copy and the min/max
+kernels, 8 blocks of (512, 128) for the five-stream copy. The roll's
+direction is pinned against ``np.roll``. The CUDA legs (marker ``gpu``)
+hold each hand-written kernel against its plain version on a card.
+Tolerance: exact equality (int32).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs in several processes at once, and
+# a thread a core each makes them contend.
+torch.set_num_threads(1)
+
+from suffix_torch.ops import probes  # noqa: E402
+
+R = 4096
+BR = 2048   # round3_study.py section_bw: copy and min/max block rows
+BR5 = 512   # five-stream copy block rows
+K = 16      # min/max stages
+
+
+@pytest.fixture(scope="module")
+def pallas():
+    """The three kernels of section_bw, at R rows, in interpret mode."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    def spec(rows):
+        return pl.BlockSpec((rows, 128), lambda i: (i, 0),
+                            memory_space=pltpu.VMEM)
+
+    def copy_kernel(x_ref, o_ref):
+        o_ref[:] = x_ref[:]
+
+    def pallas_copy(x):
+        return pl.pallas_call(
+            copy_kernel,
+            out_shape=jax.ShapeDtypeStruct((R, 128), jnp.int32),
+            grid=(R // BR,), in_specs=[spec(BR)], out_specs=spec(BR),
+            interpret=True)(x)
+
+    def copy_kernel5(a, b, c, d, e, oa, ob, oc, od, oe):
+        oa[:] = a[:]
+        ob[:] = b[:]
+        oc[:] = c[:]
+        od[:] = d[:]
+        oe[:] = e[:]
+
+    def pallas_copy5(*arrs):
+        return pl.pallas_call(
+            copy_kernel5,
+            out_shape=tuple(jax.ShapeDtypeStruct((R, 128), jnp.int32)
+                            for _ in range(5)),
+            grid=(R // BR5,), in_specs=[spec(BR5)] * 5,
+            out_specs=tuple([spec(BR5)] * 5), interpret=True)(*arrs)
+
+    def vpu_kernel(x_ref, o_ref):
+        v = x_ref[:]
+        for s in range(K):
+            w = pltpu.roll(v, shift=1 + s, axis=0)
+            lo = jnp.minimum(v, w)
+            hi = jnp.maximum(v, w)
+            v = jnp.where((jax.lax.broadcasted_iota(
+                jnp.int32, v.shape, 0) & 1) == 0, lo, hi)
+        o_ref[:] = v
+
+    def pallas_vpu(x):
+        return pl.pallas_call(
+            vpu_kernel,
+            out_shape=jax.ShapeDtypeStruct((R, 128), jnp.int32),
+            grid=(R // BR,), in_specs=[spec(BR)], out_specs=spec(BR),
+            interpret=True)(x)
+
+    def run(fn, *xs):
+        out = fn(*(jnp.asarray(x) for x in xs))
+        if isinstance(out, tuple):
+            return tuple(np.asarray(o) for o in out)
+        return np.asarray(out)
+
+    return {"copy": lambda x: run(pallas_copy, x),
+            "copy5": lambda *xs: run(pallas_copy5, *xs),
+            "vpu": lambda x: run(pallas_vpu, x)}
+
+
+def _inputs(k: int, seed: int = 3) -> list[np.ndarray]:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 1 << 22, size=(R, 128), dtype=np.int32)
+            for _ in range(k)]
+
+
+def test_copy_blocks_matches_pallas(pallas):
+    x = _inputs(1)[0]
+    got = probes.copy_blocks(torch.from_numpy(x))
+    assert got.dtype == torch.int32 and got.shape == (R, 128)
+    assert np.array_equal(got.numpy(), pallas["copy"](x))
+
+
+def test_copy5_blocks_matches_pallas(pallas):
+    xs = _inputs(5)
+    got = probes.copy5_blocks(*(torch.from_numpy(x) for x in xs))
+    want = pallas["copy5"](*xs)
+    assert len(got) == 5
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_minmax_stages_matches_pallas(pallas, seed):
+    x = _inputs(1, seed)[0]
+    got = probes.minmax_stages(torch.from_numpy(x), K, BR)
+    assert np.array_equal(got.numpy(), pallas["vpu"](x))
+
+
+def _minmax_numpy(x: np.ndarray, stages: int, block_rows: int) -> np.ndarray:
+    """The stages with np.roll per block, written out."""
+    v = x.reshape(-1, block_rows, x.shape[1]).copy()
+    odd = (np.arange(block_rows) % 2 == 1)[None, :, None]
+    for s in range(stages):
+        w = np.roll(v, 1 + s, axis=1)
+        v = np.where(odd, np.maximum(v, w), np.minimum(v, w))
+    return v.reshape(x.shape)
+
+
+def test_roll_direction_pinned():
+    # One stage on one 4-row block: w[r] = v[r - 1 mod 4], so row 0 reads
+    # row 3 (the wrap) and row 1 reads row 0.
+    x = np.array([[5], [1], [7], [3]], np.int32)
+    got = probes.minmax_stages(torch.from_numpy(x), 1, 4).numpy()
+    # rows: 0 even min(5, v[3]=3) = 3; 1 odd max(1, v[0]=5) = 5;
+    #       2 even min(7, v[1]=1) = 1; 3 odd max(3, v[2]=7) = 7.
+    assert got[:, 0].tolist() == [3, 5, 1, 7]
+    assert np.array_equal(got, _minmax_numpy(x, 1, 4))
+
+
+@pytest.mark.parametrize("rows,width,stages,block_rows", [
+    (64, 128, 16, 8),     # shifts past the block wrap modulo its rows
+    (4096, 20, 5, 1024),  # a width that is no multiple of 8
+    (30, 3, 3, 5),        # odd block rows
+])
+def test_minmax_plain_matches_numpy(rows, width, stages, block_rows):
+    x = np.random.default_rng(rows).integers(-9, 9, size=(rows, width),
+                                             dtype=np.int32)
+    got = probes.minmax_stages(torch.from_numpy(x), stages, block_rows)
+    assert np.array_equal(got.numpy(), _minmax_numpy(x, stages, block_rows))
+
+
+def test_cpu_runs_plain_and_counts_nothing():
+    x = torch.arange(40, dtype=torch.int32).view(8, 5)
+    before = (probes.copy_blocks.launches, probes.copy5_blocks.launches,
+              probes.minmax_stages.launches)
+    assert torch.equal(probes.copy_blocks(x), x)
+    assert all(torch.equal(o, x) for o in probes.copy5_blocks(*[x] * 5))
+    probes.minmax_stages(x, 2, 4)
+    assert before == (probes.copy_blocks.launches,
+                      probes.copy5_blocks.launches,
+                      probes.minmax_stages.launches)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: probes.copy_blocks(torch.zeros(8, dtype=torch.int64)),
+    lambda: probes.copy_blocks(torch.zeros(16, dtype=torch.int32)[::2]),
+    lambda: probes.copy5_blocks(*[torch.zeros(8, dtype=torch.int32)] * 4),
+    lambda: probes.copy5_blocks(*[torch.zeros(8, dtype=torch.int32)] * 4,
+                                torch.zeros(9, dtype=torch.int32)),
+    lambda: probes.minmax_stages(torch.zeros(8, dtype=torch.int32)),
+    lambda: probes.minmax_stages(torch.zeros((12, 4), dtype=torch.int32),
+                                 2, 8),
+    lambda: probes.minmax_stages(torch.zeros((8, 4), dtype=torch.int32),
+                                 0, 8),
+    lambda: probes.minmax_stages(torch.zeros((4096, 4), dtype=torch.int32),
+                                 1, 4096),
+], ids=["int64", "strided", "four", "shapes", "1d", "rows", "stages0",
+        "block4096"])
+def test_probes_reject(call):
+    with pytest.raises(ValueError):
+        call()
+
+
+def test_battery_needs_a_card():
+    with pytest.raises(ValueError, match="CUDA"):
+        probes.bandwidth_battery("cpu")
+
+
+def test_minmax_bound_terms():
+    by_bytes, by_ops = probes.minmax_bound(1 << 22, 16)
+    assert by_bytes == pytest.approx(2 * 4 * (1 << 22) / 3.35e12 * 1e3)
+    assert by_ops == pytest.approx(16 * (1 << 22)
+                                   / (132 * 64 * 1.98e9) * 1e3)
+    assert by_bytes > by_ops  # the probe is bound by bytes
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _cuda_ints(shape, seed, device):
+    vals = np.random.default_rng(seed).integers(-(1 << 30), 1 << 30,
+                                                size=shape, dtype=np.int32)
+    return torch.from_numpy(vals).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1 << 15, 128), (1,), (5,), (4099,)])
+def test_cuda_copies_match_plain(cuda_device, shape):
+    xs = [_cuda_ints(shape, k, cuda_device) for k in range(5)]
+    before = probes.copy_blocks.launches, probes.copy5_blocks.launches
+    assert torch.equal(probes.copy_blocks(xs[0]), xs[0])
+    for got, want in zip(probes.copy5_blocks(*xs), xs):
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert (probes.copy_blocks.launches, probes.copy5_blocks.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,width,stages,block_rows", [
+    (1 << 15, 128, 16, 2048), (4096, 128, 16, 2048), (64, 128, 16, 8),
+    (4096, 20, 5, 1024), (30, 3, 3, 5)])
+def test_cuda_minmax_matches_plain(cuda_device, rows, width, stages,
+                                   block_rows):
+    x = _cuda_ints((rows, width), rows + width, cuda_device)
+    got = probes.minmax_stages(x, stages, block_rows)
+    want = probes.minmax_stages_plain(x, stages, block_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_battery_rows(cuda_device):
+    rows = probes.bandwidth_battery(cuda_device)
+    assert [r["op"] for r in rows] == [
+        "torch_copy1", "cuda_copy1", "torch_copy5", "cuda_copy5",
+        "cuda_minmax_x16", "lexsort5", "lexsort2"]
+    assert all(r["ms"] > 0 for r in rows)

@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs in several processes at once, and
+# a thread a core each makes them contend.
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
