@@ -11,10 +11,14 @@ Phases, each printing one JSON line:
               exact equality, and its time beside the plain version's, one
               PyTorch library call's and the memory bound.
    probes   — copy_blocks, copy5_blocks and minmax_stages against their
-              plain versions at (2^15, 128) int32 from seed 3 (and
-              minmax_stages at 2 blocks), exact equality; then the
-              bandwidth battery (ops/probes.py), whose run is the probes'
-              path.
+              plain versions at (2^15, 128) int32 from seed 3, ragged
+              copies (less than one 32 KiB chunk, no multiple of it) and
+              minmax_stages on both paths (the register path at 16, 2 and
+              1 blocks; the shared path at five other shapes), exact
+              equality; each kernel's registers, stack, spills and shared
+              memory from the build log, and its CTAs an SM and waves at
+              the battery's shape; then the bandwidth battery
+              (ops/probes.py), whose run is the probes' path.
 4. golden   — SA-IS build of the 100 KB E. coli fixture against its golden
               SA digest.
    golden_device — the default (doubling) build of both E. coli fixtures
@@ -44,7 +48,8 @@ Phases, each printing one JSON line:
 
 byte_histogram's launch counter is set to 0 just before phase 5 and read
 just after phase 6 (its path is the SA-IS build); the probes' counters
-just before and after the battery. The doubling and LCP path runs library
+(minmax_stages' by path too) just before and after the battery, which
+must run the register path. The doubling and LCP path runs library
 operations only. The line before the last is the kernel table
 (``{"kernels": [...]}``); the last line is the device summary. Any failed
 check raises, and the script exits non-zero without those two lines. It
@@ -189,11 +194,13 @@ def check_histogram(torch, kernels, sais, time_ms, raw: bytes) -> dict:
     return {"max_abs_err": max_err, **timing}
 
 
-def check_probes(torch, probes) -> dict:
+def check_probes(torch, probes, ptxas: list[dict]) -> dict:
     """Phase 3, probes: each probe kernel against its plain version, then
-    the bandwidth battery with the probes' counters from 0."""
+    the bandwidth battery with the probes' counters from 0. ``ptxas`` is
+    the build log's report of csrc/probes.cu."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def make(shape):
         vals = rng.integers(0, 1 << 22, size=shape, dtype=np.int32)
@@ -208,42 +215,58 @@ def check_probes(torch, probes) -> dict:
 
     errs = {"copy_blocks": 0, "copy5_blocks": 0, "minmax_stages": 0}
     cases = []
-    # The study's shape, then ragged lengths for the scalar tail.
-    for shape in (PROBE_SHAPE, (1,), (5,), (4099,)):
+    # The study's shape, then ragged lengths: the scalar tail, less than
+    # one 32 KiB chunk, no multiple of it (with and without a full grid).
+    chunk = probes.COPY_CHUNK_INTS
+    for shape in (PROBE_SHAPE, (1,), (5,), (4099,), (chunk - 1,),
+                  (3 * chunk + 4099,), (266 * chunk + 77,)):
         xs = [make(shape) for _ in range(5)]
         errs["copy_blocks"] = max(errs["copy_blocks"], err(
             probes.copy_blocks(xs[0]), probes.copy_blocks_plain(xs[0])))
         got, want = probes.copy5_blocks(*xs), probes.copy5_blocks_plain(*xs)
         errs["copy5_blocks"] = max(errs["copy5_blocks"], *(
             err(g, w) for g, w in zip(got, want)))
-        cases.append(f"copy{shape}")
-    # (shape, stages, block_rows): the study's 16 blocks; 2 blocks, whose
-    # first 136 rows take the roll's wrap; shifts past the block; a width
-    # that is no multiple of the 8-column slab.
+        n = int(np.prod(shape))
+        cases.append({"copy": shape, "plan_1": probes.copy_plan(n, 1, sms),
+                      "plan_5": probes.copy_plan(n, 5, sms)})
+    # (shape, stages, block_rows): the register path at the study's 16
+    # blocks, at 2 (lane 0 takes the roll's wrap from lane 31) and at one
+    # 16-column slab; the shared path at the full block with another
+    # stage count and with a width of no whole slabs, shifts past the
+    # block, and a width that is no multiple of its 8-column slab.
     for shape, stages, block_rows in ((PROBE_SHAPE, 16, 2048),
                                       ((4096, 128), 16, 2048),
+                                      ((2048, 16), 16, 2048),
+                                      ((4096, 128), 15, 2048),
+                                      ((4096, 24), 16, 2048),
                                       ((64, 128), 16, 8),
                                       ((4096, 20), 5, 1024)):
         x = make(shape)
         errs["minmax_stages"] = max(errs["minmax_stages"], err(
             probes.minmax_stages(x, stages, block_rows),
             probes.minmax_stages_plain(x, stages, block_rows)))
-        cases.append(f"minmax{shape}x{stages}/{block_rows}")
+        cases.append({"minmax": shape, "stages": stages,
+                      "block_rows": block_rows,
+                      "path": probes.minmax_path(shape[1], block_rows,
+                                                 stages)})
     if any(errs.values()):
         raise AssertionError(f"a probe kernel differs from its plain "
                              f"version: {errs}")
+    waves = probes.battery_waves(dev)
 
     # ---- the probes' path: counters from 0, the battery, counters read --
-    for fn in (probes.copy_blocks, probes.copy5_blocks, probes.minmax_stages):
+    wrappers = (probes.copy_blocks, probes.copy5_blocks, probes.minmax_stages)
+    for fn in wrappers:
         fn.launches = 0
+    probes.minmax_stages.path_launches = dict.fromkeys(probes.MINMAX_PATHS, 0)
     rows = probes.bandwidth_battery(dev)
-    launches = {fn.__name__: fn.launches for fn in (
-        probes.copy_blocks, probes.copy5_blocks, probes.minmax_stages)}
-    if not all(launches.values()):
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    paths = dict(probes.minmax_stages.path_launches)
+    if not all(launches.values()) or not paths["registers"]:
         raise AssertionError(f"a probe kernel never launched in the "
-                             f"battery: {launches}")
+                             f"battery: {launches}, minmax paths {paths}")
     emit("probes", cases=cases, max_abs_err=errs, launches=launches,
-         battery=rows)
+         minmax_path_launches=paths, ptxas=ptxas, waves=waves, battery=rows)
     by_op = {r["op"]: r for r in rows}
     return {name: {"max_abs_err": errs[name], "launches": launches[name],
                    **by_op[op]}
@@ -469,7 +492,8 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     raw = dna_text(rng)
     hist = check_histogram(torch, kernels, sais, probes.time_ms, raw)
-    probe = check_probes(torch, probes)
+    probe = check_probes(torch, probes, kernels.ptxas_report(
+        libs["probes"].with_suffix(".log").read_text()))
 
     fixture = FIXTURE.read_bytes()
     st100 = SuffixTable.new(fixture, engine="sais", collect_stats=True)

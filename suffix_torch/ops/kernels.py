@@ -28,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -51,12 +52,18 @@ _SIGNATURES = {
                                   ctypes.c_int),
     },
     "probes": {
-        "copy_blocks_launch": ([_P, _P, ctypes.c_int64, _P], ctypes.c_int),
-        "copy5_blocks_launch": ([_P] * 10 + [ctypes.c_int64, _P],
+        "copy_blocks_launch": ([_P, _P, ctypes.c_int64, ctypes.c_int64,
+                                ctypes.c_int, _P], ctypes.c_int),
+        "copy5_blocks_launch": ([_P] * 10 + [ctypes.c_int64, ctypes.c_int64,
+                                             ctypes.c_int, _P],
                                 ctypes.c_int),
         "minmax_stages_launch": ([_P, _P, ctypes.c_int64, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_int, _P],
                                  ctypes.c_int),
+        "minmax_registers_launch": ([_P, _P, ctypes.c_int64, ctypes.c_int,
+                                     _P], ctypes.c_int),
+        "probes_ctas_per_sm": ([ctypes.c_int, ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
     },
 }
 
@@ -129,6 +136,53 @@ def _library(stem: str) -> ctypes.CDLL:
             fn.restype = restype
         _LIBS[stem] = lib
     return lib
+
+
+def _kernel_name(mangled: str) -> str:
+    """The first name of an Itanium-mangled function that is not an
+    anonymous namespace (``_ZN41_GLOBAL__N__..._9probes_cu_...12copy_kernel
+    Ev`` -> ``copy_kernel``), or the name as given."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    while m := re.match(r"\d+", mangled[i:]):
+        size = int(m.group())
+        i += m.end()
+        ident = mangled[i:i + size]
+        i += size
+        if not ident.startswith("_GLOBAL__N"):
+            return ident
+    return mangled
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Each kernel (entry function) of an ``nvcc -Xptxas -v`` log: its
+    name, registers, stack frame, spill stores and loads and static shared
+    memory in bytes, in the order compiled."""
+    kernels: dict[str, dict] = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = kernels.setdefault(m.group(1), {
+                "kernel": _kernel_name(m.group(1)), "registers": None,
+                "stack": 0, "spill_stores": 0, "spill_loads": 0, "smem": 0})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = kernels.get(m.group(1))
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            current["stack"], current["spill_stores"], current[
+                "spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            current["smem"] = int(smem.group(1)) if smem else 0
+    return list(kernels.values())
 
 
 def byte_histogram_plain(values: torch.Tensor, n_bins: int) -> torch.Tensor:

@@ -122,3 +122,27 @@ def test_cuda_sais_build_launches_kernel(cuda_device):
     assert np.array_equal(st.table(), naive_table(text))
     assert st.count(text[100:114]) == sum(
         text.startswith(text[100:114], i) for i in range(len(text)))
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__c2c3656a_9_probes_cu_5aecca0616copy_ring_kernelENS_9CopyPairsEill' for 'sm_90a'
+ptxas info    : Function properties for _ZN41_GLOBAL__N__c2c3656a_9_probes_cu_5aecca0616copy_ring_kernelENS_9CopyPairsEill
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 32 bytes smem, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z21byte_histogram_kernelPKiiPi' for 'sm_90a'
+ptxas info    : Function properties for _Z21byte_histogram_kernelPKiiPi
+    80 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 18 registers, 380 bytes cmem[0]
+"""
+
+
+def test_ptxas_report():
+    from suffix_torch.ops.kernels import ptxas_report
+
+    assert ptxas_report(PTXAS_LOG) == [
+        {"kernel": "copy_ring_kernel", "registers": 32, "stack": 0,
+         "spill_stores": 0, "spill_loads": 0, "smem": 32},
+        {"kernel": "byte_histogram_kernel", "registers": 18, "stack": 80,
+         "spill_stores": 8, "spill_loads": 4, "smem": 0},
+    ]

@@ -154,13 +154,106 @@ def test_minmax_plain_matches_numpy(rows, width, stages, block_rows):
 def test_cpu_runs_plain_and_counts_nothing():
     x = torch.arange(40, dtype=torch.int32).view(8, 5)
     before = (probes.copy_blocks.launches, probes.copy5_blocks.launches,
-              probes.minmax_stages.launches)
+              probes.minmax_stages.launches,
+              dict(probes.minmax_stages.path_launches))
     assert torch.equal(probes.copy_blocks(x), x)
     assert all(torch.equal(o, x) for o in probes.copy5_blocks(*[x] * 5))
     probes.minmax_stages(x, 2, 4)
+    probes.minmax_stages(torch.zeros((2048, 16), dtype=torch.int32))
     assert before == (probes.copy_blocks.launches,
                       probes.copy5_blocks.launches,
-                      probes.minmax_stages.launches)
+                      probes.minmax_stages.launches,
+                      probes.minmax_stages.path_launches)
+
+
+# ---- the register path's strip layout, emulated -------------------------
+
+LANES = 32
+
+
+def _strip_shift(v: np.ndarray, d: int) -> np.ndarray:
+    """w for one stage of shift d, as the register path builds it from a
+    warp's strips v (LANES, K): w[l, i] = v[l, i - d] for i >= d, else the
+    previous lane's v[l - 1, K + i - d] (lane 0 from lane 31)."""
+    k = v.shape[1]
+    assert d <= k, "the shift reaches past the previous lane"
+    w = np.empty_like(v)
+    w[:, d:] = v[:, :k - d]
+    w[:, :d] = np.roll(v, 1, axis=0)[:, k - d:]
+    return w
+
+
+@pytest.mark.parametrize("k", [64, 4])
+@pytest.mark.parametrize("d", range(1, 17))
+def test_strip_index_map_is_the_roll(k, d):
+    # Row lane * K + i of a block of LANES * K rows sits in lane `lane`,
+    # register i; the strip map equals np.roll inside the block.
+    col = np.random.default_rng(d).integers(0, 1 << 30, size=LANES * k)
+    v = col.reshape(LANES, k)
+    assert np.array_equal(v.reshape(-1), col)
+    if d > k:
+        # Past one strip the map would need lane - 2: the picker never
+        # sends such a shape to the register path.
+        assert probes.minmax_path(128, LANES * k, d) == "shared"
+        with pytest.raises(AssertionError):
+            _strip_shift(v, d)
+        return
+    want = np.roll(col, d)
+    assert np.array_equal(_strip_shift(v, d).reshape(-1), want)
+
+
+def test_register_stages_emulated():
+    # The register path's 16 stages on whole strips, parity from the
+    # register index (K is even), against the plain stages.
+    k, stages = probes.REGISTER_BLOCK_ROWS // LANES, probes.REGISTER_STAGES
+    x = np.random.default_rng(5).integers(-(1 << 30), 1 << 30,
+                                          size=(2 * LANES * k, 3),
+                                          dtype=np.int32)
+    out = np.empty_like(x)
+    odd = (np.arange(k) % 2 == 1)[None, :]
+    for b in range(2):
+        for c in range(x.shape[1]):
+            v = x[b * LANES * k:(b + 1) * LANES * k, c].reshape(LANES, k)
+            for s in range(stages):
+                w = _strip_shift(v, 1 + s)
+                v = np.where(odd, np.maximum(v, w), np.minimum(v, w))
+            out[b * LANES * k:(b + 1) * LANES * k, c] = v.reshape(-1)
+    assert np.array_equal(out, _minmax_numpy(x, stages,
+                                             probes.REGISTER_BLOCK_ROWS))
+
+
+@pytest.mark.parametrize("width,block_rows,stages,path", [
+    (128, 2048, 16, "registers"),   # the battery, 16 blocks and 2
+    (16, 2048, 16, "registers"),    # one slab
+    (128, 2048, 15, "shared"),      # another stage count
+    (24, 2048, 16, "shared"),       # a width of no whole 16-column slabs
+    (128, 8, 16, "shared"),         # shifts past the block
+    (20, 1024, 5, "shared"),
+    (3, 5, 3, "shared"),
+])
+def test_minmax_path(width, block_rows, stages, path):
+    assert probes.minmax_path(width, block_rows, stages) == path
+    if path == "registers":
+        assert stages <= block_rows // LANES
+
+
+@pytest.mark.parametrize("n,pairs,plan", [
+    (1 << 22, 5, (512, 132)),   # the battery: 2,560 chunks, one CTA an SM
+    (1 << 22, 1, (512, 132)),
+    (1, 5, (0, 1)),
+    (5, 5, (0, 1)),
+    (4099, 5, (0, 21)),         # less than one chunk
+    (8191, 5, (0, 40)),
+    (8192, 5, (1, 5)),          # exactly one chunk a pair
+    (3 * 8192 + 4099, 5, (3, 36)),  # no multiple of the chunk
+    (266 * 8192 + 77, 5, (266, 132)),
+])
+def test_copy_plan(n, pairs, plan):
+    chunks, grid = probes.copy_plan(n, pairs, 132)
+    assert (chunks, grid) == plan
+    assert chunks * probes.COPY_CHUNK_INTS <= n
+    assert n - chunks * probes.COPY_CHUNK_INTS < probes.COPY_CHUNK_INTS
+    assert 1 <= grid <= 132
 
 
 @pytest.mark.parametrize("call", [
@@ -210,7 +303,9 @@ def _cuda_ints(shape, seed, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1 << 15, 128), (1,), (5,), (4099,)])
+@pytest.mark.parametrize("shape", [(1 << 15, 128), (1,), (5,), (4099,),
+                                   (8191,), (3 * 8192 + 4099,),
+                                   (266 * 8192 + 77,)])
 def test_cuda_copies_match_plain(cuda_device, shape):
     xs = [_cuda_ints(shape, k, cuda_device) for k in range(5)]
     before = probes.copy_blocks.launches, probes.copy5_blocks.launches
@@ -224,15 +319,20 @@ def test_cuda_copies_match_plain(cuda_device, shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,width,stages,block_rows", [
-    (1 << 15, 128, 16, 2048), (4096, 128, 16, 2048), (64, 128, 16, 8),
+    (1 << 15, 128, 16, 2048), (4096, 128, 16, 2048), (2048, 16, 16, 2048),
+    (4096, 128, 15, 2048), (4096, 24, 16, 2048), (64, 128, 16, 8),
     (4096, 20, 5, 1024), (30, 3, 3, 5)])
 def test_cuda_minmax_matches_plain(cuda_device, rows, width, stages,
                                    block_rows):
     x = _cuda_ints((rows, width), rows + width, cuda_device)
+    path = probes.minmax_path(width, block_rows, stages)
+    before = dict(probes.minmax_stages.path_launches)
     got = probes.minmax_stages(x, stages, block_rows)
     want = probes.minmax_stages_plain(x, stages, block_rows)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    before[path] += 1
+    assert probes.minmax_stages.path_launches == before
 
 
 @pytest.mark.gpu
@@ -242,3 +342,28 @@ def test_cuda_battery_rows(cuda_device):
         "torch_copy1", "cuda_copy1", "torch_copy5", "cuda_copy5",
         "cuda_minmax_x16", "lexsort5", "lexsort2"]
     assert all(r["ms"] > 0 for r in rows)
+    assert all(r["read_flush_ms"] > 0 for r in rows[:5])
+
+
+@pytest.mark.gpu
+def test_cuda_battery_waves(cuda_device):
+    waves = probes.battery_waves(cuda_device)
+    assert waves["copy5_blocks"]["ctas_per_sm"] >= 1
+    assert waves["minmax_stages"]["grid"] == 128
+    assert all(w["waves"] > 0 for w in waves.values())
+
+
+def test_bench_probes_summary():
+    from suffix_torch.bench_probes import summarize
+
+    def rows(copy1, kernel):
+        return [{"op": "torch_copy1", "ms": copy1},
+                {"op": "cuda_copy5", "ms": kernel, "read_flush_ms": None}]
+
+    out = summarize([("a", rows(0.02, 0.08)), ("b", rows(0.02, 0.06)),
+                     ("b", rows(0.01, 0.04)), ("a", rows(0.02, 0.10))])
+    a, b = out["a"]["cuda_copy5"]["ms"], out["b"]["cuda_copy5"]["ms"]
+    assert a["runs"] == [0.08, 0.10] and a["median"] == pytest.approx(0.09)
+    assert (b["min"], b["max"]) == (0.04, 0.06)
+    assert b["x_torch_copy1"] == pytest.approx([3.0, 4.0])
+    assert "read_flush_ms" not in out["a"]["cuda_copy5"]
