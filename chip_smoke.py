@@ -8,8 +8,16 @@ Phases, each printing one JSON line:
 1. device   — CUDA present; torch/CUDA versions; card name and power limit.
 2. build    — compile the CUDA kernels from ``suffix_torch/csrc`` (nvcc).
 3. kernels  — byte_histogram against its plain PyTorch version on the card,
-              exact equality, and its time beside the plain version's, one
-              PyTorch library call's and the memory bound.
+              exact equality: ragged and misaligned inputs (views x[1:],
+              x[3:]; n of 1, 3, 4, 5, 17), out-of-range values at 258
+              and 512 bins, the 4 MiB text's symbols, the histogram
+              battery's five inputs (one bin at 2^22 among them), calls
+              in a row and calls on two streams at once; one device
+              operation a call (torch.profiler); the build log's
+              registers, spills and shared memory, CTAs an SM and waves;
+              then the histogram battery (ops/kernels.py), whose
+              dna_s_sym row gives the kernel table's times: ``ms`` after
+              the zeroing flush, ``library_ms`` torch.histc.
    probes   — copy_blocks, copy5_blocks and minmax_stages against their
               plain versions at (2^15, 128) int32 from seed 3, ragged
               copies (less than one 32 KiB chunk, no multiple of it) and
@@ -152,46 +160,114 @@ def text_repeats() -> bytes:
     return planted(np.random.default_rng(SEED + 6), 26, 256, 24, 1024)
 
 
-def check_histogram(torch, kernels, sais, time_ms, raw: bytes) -> dict:
-    """Phase 3: byte_histogram against byte_histogram_plain on the card."""
+def check_histogram(torch, kernels, sais, raw: bytes,
+                    ptxas: list[dict]) -> dict:
+    """Phase 3: byte_histogram against byte_histogram_plain on the card,
+    exact, on every case; one device operation a call (torch.profiler);
+    the build log's report, CTAs an SM and waves; the histogram battery.
+    ``ptxas`` is the build log's report of csrc/histogram.cu."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
     dev = torch.device("cuda")
     rng = np.random.default_rng(0xC0FFEE)
-    cases = [(f"uniform_n{n}", rng.integers(0, 258, size=n), 258)
-             for n in (100, 1024, 3 * 1024, 4 * 1024 - 7)]
-    cases += [(f"out_of_range_bins{nb}", rng.integers(-5, 300, size=2048), nb)
+
+    def ints(lo, hi, n):
+        return torch.from_numpy(rng.integers(lo, hi, size=n,
+                                             dtype=np.int32)).to(dev)
+
+    # Less than one vector (1, 3), one vector and a scalar (4, 5), a few
+    # vectors and a tail (17), then ragged and whole tiles.
+    cases = [(f"uniform_n{n}", ints(0, 258, n), 258)
+             for n in (1, 3, 4, 5, 17, 100, 1024, 3 * 1024, 4 * 1024 - 7)]
+    cases += [(f"out_of_range_bins{nb}", ints(-5, 300, 2048), nb)
               for nb in (258, 512)]
-    cases.append(("empty", np.empty(0), 258))
+    cases.append(("empty", ints(0, 1, 0), 258))
+    # Misaligned views: a scalar head of 3 and 1 values before the first
+    # 16-byte boundary, at 2^22 and at less than one vector.
+    big = ints(-5, 520, (1 << 22) + 3)
+    small = ints(0, 258, 8)
+    for off in (1, 3):
+        cases += [(f"view{off}_4M", big[off:], 512),
+                  (f"view{off}_n{8 - off}", small[off:], 258),
+                  (f"view{off}_n1", small[off:off + 1], 258)]
     text = torch.from_numpy(np.frombuffer(raw, np.uint8).astype(np.int32))
     text = text.to(dev)
     is_s, _ = sais.classify_types(text)
     sym = (text + 1).to(torch.int32)
-    s_sym = torch.where(is_s, sym, -1)
-    cases += [("text_sym_4MiB", sym, 258), ("text_s_sym_4MiB", s_sym, 258)]
+    cases += [("text_sym_4MiB", sym, 258),
+              ("text_s_sym_4MiB", torch.where(is_s, sym, -1), 258)]
+    inputs = kernels.histogram_inputs(device=dev)
+    cases += [(name, v, nb) for name, (v, nb) in inputs.items()]
+
     max_err = 0
-    for name, vals, nb in cases:
-        x = (vals if isinstance(vals, torch.Tensor)
-             else torch.from_numpy(vals.astype(np.int32)).to(dev))
-        got = kernels.byte_histogram(x, nb)
+
+    def check(name, got, x, nb):
+        nonlocal max_err
         want = kernels.byte_histogram_plain(x, nb)
         torch.cuda.synchronize()
+        if got.shape != (nb,) or got.dtype != torch.int32:
+            raise AssertionError(f"byte_histogram on {name}: shape "
+                                 f"{tuple(got.shape)}, {got.dtype}")
         err = int((got.long() - want.long()).abs().max())
         max_err = max(max_err, err)
-        if err != 0 or got.shape != (nb,):
+        if err != 0:
             raise AssertionError(f"byte_histogram differs from its plain "
                                  f"version on {name}: max |err| {err}")
-    n = s_sym.shape[0]
-    in_range = s_sym[(s_sym >= 0) & (s_sym < 258)]
-    timing = {
-        "ms": time_ms(lambda: kernels.byte_histogram(s_sym, 258)),
-        "plain_ms": time_ms(lambda: kernels.byte_histogram_plain(s_sym, 258)),
-        # Yardstick only: one library call on the in-range values.
-        "library_ms": time_ms(lambda: torch.bincount(in_range, minlength=258)),
-        # Each input read once, each output written once.
-        "bound_ms": (4 * n + 4 * 258) / HBM_BYTES_PER_S * 1e3,
-    }
+
+    for name, x, nb in cases:
+        check(name, kernels.byte_histogram(x, nb), x, nb)
+    # Calls in a row on one stream, no sync between: each finds the
+    # accumulator the last one left at rest (512 bins, then 258).
+    v512, v258 = inputs["bins512"][0], inputs["dna_s_sym"][0]
+    row = [kernels.byte_histogram(v512, 512), kernels.byte_histogram(v258, 258),
+           kernels.byte_histogram(v258, 258)]
+    for k, (got, x, nb) in enumerate(zip(row, (v512, v258, v258),
+                                         (512, 258, 258))):
+        check(f"in_a_row_{k}", got, x, nb)
+    # Two streams at once, each with its own accumulator.
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    pairs = ((inputs["one_bin"][0], 258), (v512, 512))
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(4):
+        for s, (x, nb) in zip(streams, pairs):
+            with torch.cuda.stream(s):
+                outs.append((kernels.byte_histogram(x, nb), x, nb))
+    torch.cuda.synchronize()
+    for k, (got, x, nb) in enumerate(outs):
+        check(f"two_streams_{k}", got, x, nb)
+
+    # One device operation a call: the kernel, no memset.
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        kernels.byte_histogram(v258, 258)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    if len(device_ops) != 1 or "byte_histogram" not in device_ops[0]:
+        raise AssertionError(f"byte_histogram ran {device_ops} on the "
+                             f"device; expected its kernel alone")
+
+    sms, ctas = kernels.histogram_occupancy(dev)
+    plan = kernels.histogram_plan(v258.data_ptr(), v258.numel(), sms, ctas)
+    occupancy = {"threads": kernels.HIST_THREADS, "ctas_per_sm": ctas,
+                 "sms": sms, "plan": plan._asdict(),
+                 "waves": plan.grid / (ctas * sms)}
+    battery = kernels.histogram_battery(dev)
     emit("kernels", cases=[c[0] for c in cases], max_abs_err=max_err,
-         n=n, n_bins=258, **timing)
-    return {"max_abs_err": max_err, **timing}
+         device_ops_per_call=device_ops, ptxas=ptxas, occupancy=occupancy,
+         battery=battery)
+    r = next(r for r in battery if r["input"] == "dna_s_sym")
+    return {"max_abs_err": max_err, "bound_by": r["bound_by"],
+            **{k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "warm_ms",
+                "read_flush_ms", "library_read_flush_ms", "bincount_ms",
+                "torch_sum1_ms", "torch_sum1_read_flush_ms", "input")},
+            "library_call": "torch.histc", "device_ops_per_call": 1}
 
 
 def check_probes(torch, probes, ptxas: list[dict]) -> dict:
@@ -451,12 +527,17 @@ def check_queries(st, raw: bytes, rng: np.random.Generator,
     return drawn14
 
 
-def kernel_entry(name: str, source: str, replaces: str, r: dict) -> dict:
+KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")
+
+
+def kernel_entry(name: str, source: str, replaces: str, r: dict,
+                 extra: tuple[str, ...] = ()) -> dict:
+    """A kernel's record of the kernel table: the keys every kernel has,
+    then the ``extra`` keys of ``r``."""
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": r["launches"],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            "replaces": replaces,
+            **{k: r[k] for k in KERNEL_KEYS + tuple(extra)}}
 
 
 def main() -> int:
@@ -491,7 +572,8 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     raw = dna_text(rng)
-    hist = check_histogram(torch, kernels, sais, probes.time_ms, raw)
+    hist = check_histogram(torch, kernels, sais, raw, kernels.ptxas_report(
+        libs["histogram"].with_suffix(".log").read_text()))
     probe = check_probes(torch, probes, kernels.ptxas_report(
         libs["probes"].with_suffix(".log").read_text()))
 
@@ -561,7 +643,11 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_entry("byte_histogram", "suffix_torch/csrc/histogram.cu",
                      "suffix_tpu/ops/pallas_kernels.py:51",
-                     {**hist, "launches": launches, "bound_by": "bytes"}),
+                     {**hist, "launches": launches},
+                     ("input", "warm_ms", "read_flush_ms", "library_call",
+                      "library_read_flush_ms", "bincount_ms",
+                      "torch_sum1_ms", "torch_sum1_read_flush_ms",
+                      "device_ops_per_call")),
         kernel_entry("copy_blocks", "suffix_torch/csrc/probes.cu",
                      "scripts/round3_study.py:114", probe["copy_blocks"]),
         kernel_entry("copy5_blocks", "suffix_torch/csrc/probes.cu",

@@ -1,36 +1,53 @@
-"""Time the bandwidth battery of several source trees in turns on one card.
+"""Time the bandwidth and histogram batteries of several source trees in
+turns on one card.
 
     python3 -m suffix_torch.bench_probes TREE [TREE ...] [--out FILE]
 
 Each TREE is the root of a checkout of this repository (``.`` for this
 one). The trees run in the order given, each in a process of its own that
-builds that tree's kernels and runs its ``ops/probes.py`` battery, so give
-them in turns (parent, change, change, parent) to compare two versions on
-one card. Prints the card's name and power limit, one JSON line a run,
-then a summary: for each tree and row, the median of its runs' medians,
-their range, and the row's time as a multiple of the same run's
-``torch_copy1`` (a copy of the same bytes by PyTorch, which takes the
-card out of the comparison). ``--out`` also writes everything to FILE.
-Needs a CUDA device.
+builds that tree's kernels and runs its ``ops/probes.py`` battery, then
+this tree's ``ops/kernels.py::histogram_battery`` (its source is sent to
+the process) on that tree's ``byte_histogram``, so a tree that lacks the
+histogram battery runs the same inputs and timing loop. Give the trees in
+turns (parent, change, change, parent) to compare two versions on one
+card. Prints the card's name and power limit, one JSON line a run, then a
+summary: for each tree and row, the median of its runs' medians, their
+range, and the row's time as a multiple of the same run's ``torch_copy1``
+(a copy of the same bytes by PyTorch, which takes the card out of the
+comparison); a histogram row's times also as a multiple of its own
+``torch_sum1`` (a read of the same values by PyTorch) after the same
+flush. ``--out`` also writes everything to FILE. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
-_CHILD = """
-import json, sys
-sys.path.insert(0, ".")
-from suffix_torch.ops import probes
-print(json.dumps(probes.bandwidth_battery()))
-"""
+from suffix_torch.ops import kernels
+
+_CHILD = "\n".join((
+    "from __future__ import annotations",
+    "import json, sys",
+    "sys.path.insert(0, '.')",
+    "from suffix_torch.ops import probes",
+    inspect.getsource(kernels.histogram_inputs),
+    inspect.getsource(kernels.histogram_battery),
+    "print(json.dumps(probes.bandwidth_battery() + histogram_battery()))",
+))
 # Times of a battery row that the summary reports, where the row has them.
-TIMES = ("ms", "read_flush_ms", "library_ms", "library_read_flush_ms")
+TIMES = ("warm_ms", "ms", "read_flush_ms", "library_ms",
+         "library_read_flush_ms", "bincount_ms", "torch_sum1_warm_ms",
+         "torch_sum1_ms", "torch_sum1_read_flush_ms")
+# A histogram row's time and the read of the same values after the same
+# flush: the summary gives their ratio as x_torch_sum1.
+SUM1_OF = {"warm_ms": "torch_sum1_warm_ms", "ms": "torch_sum1_ms",
+           "read_flush_ms": "torch_sum1_read_flush_ms"}
 
 
 def run_tree(tree: Path) -> list[dict]:
@@ -41,7 +58,8 @@ def run_tree(tree: Path) -> list[dict]:
 
 
 def summarize(runs: list[tuple[str, list[dict]]]) -> dict:
-    """{tree: {op: {time: {median, min, max, runs, x_torch_copy1}}}}."""
+    """{tree: {op: {time: {median, min, max, runs, x_torch_copy1[,
+    x_torch_sum1]}}}}."""
     out: dict = {}
     for tree, rows in runs:
         base = next(r["ms"] for r in rows if r["op"] == "torch_copy1")
@@ -53,6 +71,9 @@ def summarize(runs: list[tuple[str, list[dict]]]) -> dict:
                                                     "x_torch_copy1": []})
                     entry["runs"].append(r[key])
                     entry["x_torch_copy1"].append(r[key] / base)
+                    if r.get(SUM1_OF.get(key)) is not None:
+                        entry.setdefault("x_torch_sum1", []).append(
+                            r[key] / r[SUM1_OF[key]])
     for per_op in out.values():
         for times in per_op.values():
             for entry in times.values():

@@ -367,3 +367,38 @@ def test_bench_probes_summary():
     assert (b["min"], b["max"]) == (0.04, 0.06)
     assert b["x_torch_copy1"] == pytest.approx([3.0, 4.0])
     assert "read_flush_ms" not in out["a"]["cuda_copy5"]
+
+
+def test_bench_probes_summary_histogram_rows():
+    from suffix_torch.bench_probes import summarize
+
+    def rows(copy1, kernel, sum1):
+        return [{"op": "torch_copy1", "ms": copy1},
+                {"op": "hist_dna_sym", "warm_ms": kernel / 2, "ms": kernel,
+                 "read_flush_ms": kernel, "torch_sum1_warm_ms": sum1 / 2,
+                 "torch_sum1_ms": sum1, "torch_sum1_read_flush_ms": sum1 * 2,
+                 "library_ms": 0.05, "bincount_ms": 0.3, "plain_ms": 1.6}]
+
+    out = summarize([("p", rows(0.02, 0.014, 0.007)),
+                     ("c", rows(0.02, 0.008, 0.008))])
+    p, c = out["p"]["hist_dna_sym"], out["c"]["hist_dna_sym"]
+    assert p["ms"]["x_torch_sum1"] == pytest.approx([2.0])
+    assert p["read_flush_ms"]["x_torch_sum1"] == pytest.approx([1.0])
+    assert c["warm_ms"]["x_torch_sum1"] == pytest.approx([1.0])
+    assert c["ms"]["x_torch_copy1"] == pytest.approx([0.4])
+    # The yardsticks are summarized, but not as multiples of the read.
+    assert "x_torch_sum1" not in p["library_ms"]
+    assert p["bincount_ms"]["median"] == 0.3
+    assert "plain_ms" not in p
+
+
+def test_bench_probes_child_runs_the_histogram_battery():
+    import ast
+
+    from suffix_torch.bench_probes import _CHILD
+
+    tree = ast.parse(_CHILD)
+    defs = [n.name for n in tree.body if isinstance(n, ast.FunctionDef)]
+    assert defs == ["histogram_inputs", "histogram_battery"]
+    assert _CHILD.splitlines()[-1] == (
+        "print(json.dumps(probes.bandwidth_battery() + histogram_battery()))")
