@@ -46,13 +46,35 @@ Phases, each printing one JSON line:
               (queries_device); then ``lcp_lens()``, 65,536 sampled
               adjacent pairs checked against their byte-wise common prefix.
 9. build_64m_device — the default build of 64 MiB of random DNA, certified.
+   lcp_64m — ``lcp_lens()`` on the 64 MiB table: the bulk ladder once and
+              Kasai never (both counted by wrappers set here), a survivor
+              census in (2048, n/64], the 65,536 sampled pairs and every
+              pair with an LCP of 18 or more checked against the bytes
+              (their number is the census); survivors per ladder stage;
+              then profile_lcp_64m (L1..L4 scopes).
    build_4m_device_repeats, build_4m_device_text — the default build's
               other routes at 4 MiB, certified: DNA with planted 2 KiB
               repeats (quadrupling rounds) and lowercase text with planted
               repeats (two-phase).
-10. profile_build_4m_device(_repeats, _text), profile_lcp_4m —
+   build_4m_device_nearrep — bench.py's near-repeated corpus (the 100 KB
+              fixture tiled 45 times, cut to 2^22 bytes, 16 bytes XOR 1):
+              the patched route ``patched(q=100001,defects=32)``,
+              certified, with its phase-A stats.
+10. profile_build_4m_device(_repeats, _text, _nearrep), profile_lcp_4m —
               torch.profiler over one more default build of each 4 MiB
-              text (P0..P6 and T1..T3 scopes) and one LCP.
+              text (P0..P6, T1..T3 and PP_small_key scopes) and one LCP.
+11. build_128m_text — 2^27 bytes of ``utils/textgen.py::text_corpus`` (the
+              JAX bench's large corpus), route ``adaptive(7b x 24ch)+2phase``,
+              certified.
+   queries_128m_deep — the deep keyless index of that table (no flat
+              keys; 8 fence and 6 ext words): bench.py's mixed battery of
+              4-40-byte patterns at 16,384 and 131,072, 1,024 drawn 64-byte
+              patterns (the byte tail past 42 bytes) and 1,024 random ones;
+              every (start, count) equal to the flat-key engine's (12-word
+              keys) on the same table, 4,096 bounds checked on the bytes;
+              queries per second.
+   lean_128m — the lean keyless build's fences and blocks bit-equal to
+              the one-program build's, with the peak memory of each.
 
 byte_histogram's launch counter is set to 0 just before phase 5 and read
 just after phase 6 (its path is the SA-IS build); the probes' counters
@@ -98,10 +120,13 @@ GOLDEN_DEVICE = {
 LABEL_DNA = "adaptive(3b x 40ch)"  # random DNA, 4 and 64 MiB
 LABEL_DNA_REPEATS = "adaptive(3b x 40ch)"
 LABEL_TEXT_REPEATS = "adaptive(5b x 24ch)+2phase"
+LABEL_NEARREP = "patched(q=100001,defects=32)"
+LABEL_TEXT_128M = "adaptive(7b x 24ch)+2phase"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SEED = 0xD4A
 N_TEXT = 1 << 22
 N_TEXT_64M = 1 << 26  # the size scripts/scale_probe.py measured
+N_TEXT_128M = 1 << 27  # bench.py's large text row
 N_QUERIES = 262144
 QLEN = 14
 LCP_SAMPLES = 1 << 16
@@ -112,7 +137,14 @@ SAIS_SCOPES = ("S1_classify_buckets", "S2_L_phase_round", "S3_S_phase_round")
 DOUBLING_SCOPES = ("P0_dense_pack", "P1_initial_sort", "P2_initial_rank",
                    "P3_shift_ranks", "P4_round_sort", "P5_dense_rerank",
                    "P6_route_home", "T1_to_positional", "T2_phase2_round",
-                   "T3_final_sa")
+                   "T3_final_sa", "PP_small_key")
+LCP_SCOPES = ("L1_base_compact", "L2_packed_stage", "L3_rows_stage",
+              "L4_finish")
+# bench.py's mixed battery on the 128 MiB text: pattern lengths and their
+# shares, seed 0xBEEF.
+BATTERY_LENS = (4, 8, 14, 24, 40)
+BATTERY_P = (.25, .25, .25, .15, .10)
+BATTERY_SIZES = (16384, 131072)
 
 
 def emit(phase: str, **fields) -> None:
@@ -158,6 +190,14 @@ def text_repeats() -> bytes:
     bytes: the two-phase route, its tie mass under n/8 after the first
     sort."""
     return planted(np.random.default_rng(SEED + 6), 26, 256, 24, 1024)
+
+
+def nearrep_text() -> bytes:
+    """bench.py's near-repeated corpus: the 100 KB E. coli fixture tiled
+    45 times, cut to 2^22 bytes, then 16 positions from seed 1 XOR 1."""
+    rep = np.frombuffer((FIXTURE.read_bytes() * 45)[:N_TEXT], np.uint8).copy()
+    rep[np.random.default_rng(1).integers(0, 1 << 22, 16)] ^= 1
+    return rep.tobytes()
 
 
 def check_histogram(torch, kernels, sais, raw: bytes,
@@ -378,14 +418,11 @@ def check_golden_device(SuffixTable) -> None:
              **st.build_stats)
 
 
-def check_lcp_sample(raw: bytes, table: np.ndarray, lcp: np.ndarray) -> int:
-    """LCP of LCP_SAMPLES random adjacent rank pairs against their
-    byte-wise common prefix on the host; returns the max LCP."""
-    t = np.frombuffer(raw, np.uint8)
+def pair_lcps(t: np.ndarray, table: np.ndarray,
+              ranks: np.ndarray) -> np.ndarray:
+    """Byte-wise common prefix of the suffixes at ranks r-1 and r, for
+    each r of ``ranks``, on the host."""
     n = t.size
-    if lcp.shape != (n,) or lcp.dtype != np.uint32 or lcp[0] != 0:
-        raise AssertionError("LCP array has the wrong shape, type or head")
-    ranks = np.random.default_rng(SEED + 3).integers(1, n, size=LCP_SAMPLES)
     a = table[ranks - 1].astype(np.int64)
     b = table[ranks].astype(np.int64)
     want = np.zeros(ranks.size, np.int64)
@@ -399,15 +436,80 @@ def check_lcp_sample(raw: bytes, table: np.ndarray, lcp: np.ndarray) -> int:
         want[idx[eq]] += 1
         active[idx[~eq]] = False
         off += 1
-    if not np.array_equal(lcp[ranks].astype(np.int64), want):
+    return want
+
+
+def check_lcp_sample(raw: bytes, table: np.ndarray, lcp: np.ndarray) -> int:
+    """LCP of LCP_SAMPLES random adjacent rank pairs against their
+    byte-wise common prefix on the host; returns the max LCP."""
+    t = np.frombuffer(raw, np.uint8)
+    n = t.size
+    if lcp.shape != (n,) or lcp.dtype != np.uint32 or lcp[0] != 0:
+        raise AssertionError("LCP array has the wrong shape, type or head")
+    ranks = np.random.default_rng(SEED + 3).integers(1, n, size=LCP_SAMPLES)
+    if not np.array_equal(lcp[ranks].astype(np.int64),
+                          pair_lcps(t, table, ranks)):
         raise AssertionError("sampled LCPs differ from the byte-wise "
                              "common prefix")
     return int(lcp.max())
 
 
+def check_lcp_64m(torch, lcp_ops, st, raw: bytes) -> None:
+    """lcp_64m: ``lcp_lens()`` through the bulk ladder (wrappers count the
+    ladder and Kasai calls and take the ladder's per-stage trace); the
+    census in (2048, n/64]; sampled pairs and every survivor pair against
+    the bytes."""
+    t_phase = time.perf_counter()
+    calls = {"bulk": 0, "kasai": 0}
+    trace: list = []
+    bulk, kasai = lcp_ops._lcp_bulk, lcp_ops._kasai_route
+
+    def counted_bulk(*a, **k):
+        calls["bulk"] += 1
+        return bulk(*a, trace=trace, **k)
+
+    def counted_kasai(*a, **k):
+        calls["kasai"] += 1
+        return kasai(*a, **k)
+
+    lcp_ops._lcp_bulk, lcp_ops._kasai_route = counted_bulk, counted_kasai
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lcp = st.lcp_lens()
+        lcp_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        lcp_ops._lcp_bulk, lcp_ops._kasai_route = bulk, kasai
+    n = len(raw)
+    if calls != {"bulk": 1, "kasai": 0}:
+        raise AssertionError(f"lcp_64m took {calls}; expected the bulk "
+                             "ladder once and no Kasai")
+    census = trace[0]["survivors"]
+    if not lcp_ops.LCP_SURV_CHUNKED < census <= n // 64:
+        raise AssertionError(f"survivor census {census} outside "
+                             f"({lcp_ops.LCP_SURV_CHUNKED}, {n // 64}]")
+    t0 = time.perf_counter()
+    max_lcp = check_lcp_sample(raw, st.table(), lcp)
+    deep = np.flatnonzero(lcp >= 18)
+    if deep.size != census:
+        raise AssertionError(f"{deep.size} pairs with LCP >= 18, census "
+                             f"{census}")
+    if not np.array_equal(lcp[deep].astype(np.int64),
+                          pair_lcps(np.frombuffer(raw, np.uint8), st.table(),
+                                    deep)):
+        raise AssertionError("a survivor pair's LCP differs from the bytes")
+    emit("lcp_64m", lcp_s=lcp_s, census=census,
+         survivor_pairs_checked=int(deep.size), sampled_pairs=LCP_SAMPLES,
+         max_lcp=max_lcp, check_s=time.perf_counter() - t0,
+         peak_device_gib=peak / 2**30, ladder=trace,
+         phase_s=time.perf_counter() - t_phase)
+
+
 def build_device(torch, SuffixTable, verify, raw: bytes, phase: str,
-                 label: str = LABEL_DNA):
-    """A default build with stats, its route label and certificate."""
+                 label: str = LABEL_DNA, **extra):
+    """A default build with stats, its route label and certificate;
+    ``extra`` goes into the phase's line."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     st = SuffixTable.new(raw, collect_stats=True)
@@ -420,7 +522,7 @@ def build_device(torch, SuffixTable, verify, raw: bytes, phase: str,
     if not verify(raw, st.table()):
         raise AssertionError(f"{phase}: table fails the certificate")
     emit(phase, build_s=build_s, certificate_s=time.perf_counter() - t0,
-         peak_device_gib=peak / 2**30, **st.build_stats)
+         peak_device_gib=peak / 2**30, **extra, **st.build_stats)
     return st
 
 
@@ -527,6 +629,166 @@ def check_queries(st, raw: bytes, rng: np.random.Generator,
     return drawn14
 
 
+def battery_128m(txt: np.ndarray) -> dict[str, list[bytes]]:
+    """The 128 MiB query kinds: bench.py's mixed battery at each of
+    BATTERY_SIZES (seed 0xBEEF, starts in [0, n - 64)), 1,024 drawn 64-byte
+    patterns and 1,024 random lowercase ones of 4-40 bytes."""
+    n = txt.size
+    rng = np.random.default_rng(0xBEEF)
+    kinds = {}
+    for nq in BATTERY_SIZES:
+        lens = rng.choice(BATTERY_LENS, size=nq, p=BATTERY_P)
+        starts = rng.integers(0, n - 64, size=nq)
+        kinds[f"mixed{nq}"] = [txt[s:s + m].tobytes()
+                               for s, m in zip(starts, lens)]
+    rng = np.random.default_rng(SEED + 128)
+    kinds["drawn64"] = [txt[s:s + 64].tobytes()
+                        for s in rng.integers(0, n - 64, size=1024)]
+    kinds["random"] = [bytes(rng.integers(97, 123, size=int(m),
+                                          dtype=np.uint8))
+                       for m in rng.integers(4, 41, size=1024)]
+    return kinds
+
+
+def flat_bounds(torch, search2, st, fences, block,
+                queries: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    """(start, count) of the flat-key merge engine on ``st``'s device
+    text and table, the queries packed as ``SuffixTable._bounds_batch``
+    packs them."""
+    from suffix_torch.ops.padding import PAD, bucket_size
+    from suffix_torch.ops.search import pack_queries
+
+    q, qlens = pack_queries(queries)
+    m_pad = bucket_size(q.shape[1], minimum=8)
+    full = np.full((q.shape[0], m_pad), PAD, np.int32)
+    full[:, :q.shape[1]] = q
+    n = len(st)
+    starts, counts = search2.bounds_batch_merge(
+        st._dev_text, n, st._dev_table, n, fences, block,
+        torch.from_numpy(full).to(st.device),
+        torch.from_numpy(qlens).to(st.device), m_pad)
+    return (starts.cpu().numpy().astype(np.int64),
+            counts.cpu().numpy().astype(np.int64))
+
+
+def check_bounds(raw: bytes, table: np.ndarray, queries: list[bytes],
+                 starts: np.ndarray, counts: np.ndarray, k: int) -> int:
+    """On ``k`` sampled queries: the suffixes at start and start+count-1
+    begin with the pattern, the one at start-1 sorts below it and the one
+    at start+count above it (prefix comparison). On a certified table this
+    proves the bounds. Returns the number checked."""
+    n = len(raw)
+    pick = np.random.default_rng(SEED + 129).choice(len(queries), size=k,
+                                                    replace=False)
+    for i in pick.tolist():
+        q, s, c = queries[i], int(starts[i]), int(counts[i])
+
+        def head(r):
+            p = int(table[r])
+            return raw[p:p + len(q)]
+
+        if c and (head(s) != q or head(s + c - 1) != q):
+            raise AssertionError(f"{q!r}: a bound suffix does not match")
+        if s > 0 and not head(s - 1) < q:
+            raise AssertionError(f"{q!r}: the suffix before start does "
+                                 "not sort below the pattern")
+        if s + c < n and not head(s + c) > q:
+            raise AssertionError(f"{q!r}: the suffix after the range does "
+                                 "not sort above the pattern")
+    return k
+
+
+def check_deep_queries(torch, search2, st, raw: bytes) -> None:
+    """queries_128m_deep: the deep keyless index, the battery through the
+    public batch calls, every bound equal to the flat-key engine's, 4,096
+    checked on the bytes; queries per second, median of 5."""
+    t_phase = time.perf_counter()
+    n = len(raw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st._ensure_device()
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    index_peak = torch.cuda.max_memory_allocated()
+    if st._pk is not None or st._ext_block is None:
+        raise AssertionError("the 128 MiB index is not the deep keyless one")
+    kinds = battery_128m(np.frombuffer(raw, np.uint8))
+    t0 = time.perf_counter()
+    _, fences, block = search2.build_query_index(
+        st._dev_text, st._dev_table, n, key_words=search2.EXT_KEY_WORDS)
+    torch.cuda.synchronize()
+    flat_index_s = time.perf_counter() - t0
+    everything = [[], [], []]
+    rows = {}
+    for name, qs in kinds.items():
+        t0 = time.perf_counter()
+        counts = st.count_batch(qs)
+        first_s = time.perf_counter() - t0
+        starts, counts_b = st._bounds_batch(qs)
+        want_s, want_c = flat_bounds(torch, search2, st, fences, block, qs)
+        if not (np.array_equal(counts, counts_b)
+                and np.array_equal(counts_b, want_c)
+                and np.array_equal(starts, want_s)):
+            raise AssertionError(f"{name}: deep keyless bounds differ from "
+                                 "the flat-key engine's")
+        rows[name] = {"queries": len(qs), "first_batch_s": first_s,
+                      "matched": int((counts > 0).sum())}
+        for acc, part in zip(everything, (qs, starts, counts)):
+            acc.extend(part)
+    del fences, block
+    checked = check_bounds(raw, st.table(), *everything, k=4096)
+    for nq in BATTERY_SIZES:
+        qs = kinds[f"mixed{nq}"]
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            st.count_batch(qs)
+            times.append(time.perf_counter() - t0)
+        rows[f"mixed{nq}"].update(batch_times_s=times,
+                                  queries_per_s=nq / statistics.median(times))
+    emit("queries_128m_deep", index_s=index_s,
+         index_peak_device_gib=index_peak / 2**30,
+         flat_index_s=flat_index_s, bounds_checked=checked, kinds=rows,
+         phase_s=time.perf_counter() - t_phase)
+
+
+def check_lean(torch, search2, st) -> None:
+    """lean_128m: the lean keyless build against the one-program
+    with_keys=False build, bit for bit, with each one's peak memory over
+    what was resident before it."""
+    t_phase = time.perf_counter()
+    n = len(st)
+
+    def build(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                (torch.cuda.max_memory_allocated() - base) / 2**30,
+                base / 2**30)
+
+    one, one_s, one_gib, one_base = build(lambda: search2.build_query_index(
+        st._dev_text, st._dev_table, n, with_keys=False))
+    stride = one[2].shape[1] // search2.KEY_WORDS
+    lean, lean_s, lean_gib, lean_base = build(
+        lambda: search2._build_query_index_lean(
+            st._dev_text, st._dev_table, n, search2.KEY_WORDS, stride))
+    if not (torch.equal(one[2], lean[2])
+            and all(torch.equal(a, b) for a, b in zip(one[1], lean[1]))):
+        raise AssertionError("the lean build differs from the one-program "
+                             "build")
+    emit("lean_128m", stride=stride, one_program_s=one_s,
+         one_program_peak_over_resident_gib=one_gib,
+         resident_before_one_gib=one_base, lean_s=lean_s,
+         lean_peak_over_resident_gib=lean_gib,
+         resident_before_lean_gib=lean_base,
+         phase_s=time.perf_counter() - t_phase)
+
+
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
@@ -549,7 +811,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from suffix_torch import SuffixTable
-    from suffix_torch.ops import kernels, probes, sais
+    from suffix_torch.ops import kernels, probes, sais, search2
+    from suffix_torch.ops import lcp as lcp_ops
+    from suffix_torch.utils import textgen
     from suffix_torch.utils.verify import verify_suffix_array
 
     smi = subprocess.run(
@@ -619,9 +883,11 @@ def main() -> int:
 
     raw64 = (np.random.default_rng(SEED + 64).integers(
         0, 4, size=N_TEXT_64M, dtype=np.uint8) + 97).tobytes()
-    build_device(torch, SuffixTable, verify_suffix_array, raw64,
-                 "build_64m_device")
-    del raw64
+    st64 = build_device(torch, SuffixTable, verify_suffix_array, raw64,
+                        "build_64m_device")
+    check_lcp_64m(torch, lcp_ops, st64, raw64)
+    profile(torch, "lcp_64m", st64.lcp_lens, LCP_SCOPES)
+    del st64, raw64
 
     # The other routes of the default build at 4 MiB: rounds at full
     # width, and the two-phase engine.
@@ -631,6 +897,9 @@ def main() -> int:
     text = text_repeats()
     build_device(torch, SuffixTable, verify_suffix_array, text,
                  "build_4m_device_text", LABEL_TEXT_REPEATS)
+    nearrep = nearrep_text()
+    build_device(torch, SuffixTable, verify_suffix_array, nearrep,
+                 "build_4m_device_nearrep", LABEL_NEARREP)
 
     profile(torch, "build_4m_device", lambda: SuffixTable.new(raw),
             DOUBLING_SCOPES)
@@ -638,7 +907,20 @@ def main() -> int:
             lambda: SuffixTable.new(repeats), DOUBLING_SCOPES)
     profile(torch, "build_4m_device_text", lambda: SuffixTable.new(text),
             DOUBLING_SCOPES)
+    profile(torch, "build_4m_device_nearrep",
+            lambda: SuffixTable.new(nearrep), DOUBLING_SCOPES)
     profile(torch, "lcp_4m", st_d.lcp_lens, ())
+    del st_d
+
+    # ---- 128 MiB text: build, deep keyless queries, lean build ----------
+    t0 = time.perf_counter()
+    text128 = textgen.text_corpus(N_TEXT_128M).tobytes()
+    st128 = build_device(torch, SuffixTable, verify_suffix_array, text128,
+                         "build_128m_text", LABEL_TEXT_128M,
+                         generate_s=time.perf_counter() - t0)
+    check_deep_queries(torch, search2, st128, text128)
+    check_lean(torch, search2, st128)
+    del st128, text128
 
     print(json.dumps({"kernels": [
         kernel_entry("byte_histogram", "suffix_torch/csrc/histogram.cu",

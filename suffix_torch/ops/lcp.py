@@ -5,29 +5,35 @@ src/table.rs:348-361): ``lcp[0] = 0`` and ``lcp[i]`` is the number of
 equal leading bytes of the suffixes at ranks i-1 and i.
 
 The device route reads the first 18 bytes of every adjacent pair from the
-packed rank-order prefix keys (no gathers), then refines the few pairs
-equal through all of them ("survivors") with windowed byte compares, in
-chunks of 2048 lanes. ``lcp_from_sa(method="auto")`` routes survivor-
-dense corpora to the linear host Kasai, with the JAX package's
-thresholds, so both packages take the same route.
+packed rank-order prefix keys (no gathers), then refines the pairs equal
+through all of them ("survivors"): at most LCP_SURV_CHUNKED survivors by
+windowed byte compares in chunks of 2048 lanes; up to n/64 by the staged
+bulk ladder (``_lcp_bulk``: base compaction, packed-symbol stages, row
+stages, finish); more go to the linear host Kasai. The thresholds are the
+JAX package's, so both packages take the same route.
 
 What changes from JAX to PyTorch:
 
-- ``lax.while_loop`` becomes a host loop with one readback per round.
+- ``lax.while_loop`` / ``fori_loop`` become host loops with one readback
+  a round (a block's round in the bulk stages).
 - Survivor compaction is ``nonzero`` (a stable compaction) and the
   un-permute is a scatter, where JAX key-sorts both ways.
 - ``cumprod(eq).sum(axis=1)`` (equal leading bytes of a window) is a
   first-mismatch ``argmax``.
 - The native C++ Kasai is not ported, so the Kasai route is the host
   numpy ``kasai_host`` (JAX's own route when its native library is
-  missing), and the staged bulk engine (``_lcp_bulk``) raises
-  ``NotImplementedError``.
+  missing).
+- The bulk stages run under ``record_function`` scopes ``L1_base_compact``,
+  ``L2_packed_stage``, ``L3_rows_stage`` and ``L4_finish``.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from suffix_torch.device import resolve_device
 from suffix_torch.ops import search2
@@ -40,6 +46,13 @@ LCP_SURV_CHUNKED = 2048      # one refine chunk
 LCP_MAX_OFF = 8192           # chunked path: ~64 refine rounds of 128 B
 LCP_SAMPLE_DENSE_FRAC = 2 / 64
 LCP_SAMPLE_K = 1 << 16
+LCP_BULK_MAX_OFF = 1 << 16   # bulk budget: deeper LCPs -> Kasai
+# The bulk ladder: (kind, window, rounds) stages with a compaction of the
+# live lanes between them; "packed" windows count symbols (3 a gathered
+# int32), "rows" windows bytes (aligned 128-byte text rows). Rounds 0 on
+# the last stage means "to LCP_BULK_MAX_OFF".
+LCP_BULK_LADDER = (("packed", 15, 1), ("packed", 15, 2), ("packed", 45, 3),
+                   ("rows", 2048, 4), ("rows", 16384, 0))
 
 
 def _window(text: torch.Tensor, n_text: int, base: torch.Tensor, off: int,
@@ -52,11 +65,16 @@ def _window(text: torch.Tensor, n_text: int, base: torch.Tensor, off: int,
     return torch.where(pos < n_text, w, PAD)
 
 
+def _run_length(eq: torch.Tensor) -> torch.Tensor:
+    """Number of leading True entries of each row, int32."""
+    ne = ~eq
+    first = ne.to(torch.uint8).argmax(dim=1).to(I32)
+    return torch.where(ne.any(dim=1), first, eq.shape[1])
+
+
 def _equal_run(wa: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
     """Number of equal leading entries of each row pair, int32."""
-    ne = wa != wb
-    first = ne.to(torch.uint8).argmax(dim=1).to(I32)
-    return torch.where(ne.any(dim=1), first, wa.shape[1])
+    return _run_length(wa == wb)
 
 
 def _lcp_padded(text: torch.Tensor, n_text: int, table: torch.Tensor,
@@ -143,6 +161,201 @@ def _lcp_keyed(text: torch.Tensor, n_text: int, table: torch.Tensor,
     return torch.where(valid | (idx == 0), lcp, 0), unresolved
 
 
+# ---------------------------------------------------------------------------
+# The staged bulk ladder: a constant number of stages over all survivors at
+# once, the live lanes compacted to a dense prefix between stages. Rows
+# (suffix, predecessor suffix, partial lcp, flag, original rank) move as a
+# unit; the finish scatters the LCPs back by rank.
+# ---------------------------------------------------------------------------
+
+
+def _lcp_base_compact(table: torch.Tensor, n_table: int, pk):
+    """Stage 0: the keyed base over the packed keys, then the survivor
+    rows moved to the front (a stable compaction). Returns (a, b, lcp,
+    flag, perm, num_surv): suffix, predecessor suffix, lcp so far and the
+    live flag in compacted order, ``perm`` the original rank of each row
+    (int64), ``num_surv`` an int."""
+    lcp, undecided, _ = _keyed_base(pk, n_table)
+    prev_t = torch.cat([table[:1], table[:-1]])
+    surv = torch.nonzero(undecided).flatten()
+    perm = torch.cat([surv, torch.nonzero(~undecided).flatten()])
+    num_surv = int(surv.shape[0])
+    flag = torch.arange(perm.shape[0], device=table.device) < num_surv
+    return table[perm], prev_t[perm], lcp[perm], flag, perm, num_surv
+
+
+def _pow2_block(budget: int, s_pad: int) -> int:
+    """Lanes a row block: the budget rounded down to a power of two (so
+    blocks tile the power-of-two ``s_pad``), at least 256."""
+    return min(s_pad, max(256, 1 << (budget.bit_length() - 1)))
+
+
+def _refine_blocks(a, b, lcp, flag, s_pad: int, width: int, row_block: int,
+                   max_rounds: int, n_text: int, equal_run):
+    """Extend the live lanes (``flag``) of the first ``s_pad`` rows by
+    ``width``-wide windows at byte offset a + lcp vs b + lcp, ``row_block``
+    rows at a time; a block loops until its lanes resolve or
+    ``max_rounds`` rounds pass, one readback a round. ``equal_run(pa,
+    pb)`` gives each lane's equal leading window entries. ``lcp`` and
+    ``flag`` are updated in place; returns (lcp, flag, live lanes left)."""
+    # s_pad is a power of two (bucket_size); a block grid that does not
+    # tile it would leave tail lanes unrefined.
+    assert s_pad % row_block == 0, (s_pad, row_block)
+    for st in range(0, s_pad, row_block):
+        blk = slice(st, st + row_block)
+        ba, bb = a[blk].long(), b[blk].long()
+        bl, bf = lcp[blk], flag[blk]
+        rounds = 0
+        while rounds < max_rounds and bool(bf.any()):
+            run = equal_run(ba + bl, bb + bl)
+            bl = torch.where(bf, bl + run, bl)
+            # bl < n_text ends the loop on duplicate table entries too.
+            bf = bf & (run == width) & (bl < n_text)
+            rounds += 1
+        lcp[blk], flag[blk] = bl, bf
+    return lcp, flag, int(flag[:s_pad].sum())
+
+
+def _bulk_refine_prefix(text: torch.Tensor, n_text: int, a, b, lcp, flag,
+                        s_pad: int, w: int, row_block: int, max_rounds: int):
+    """Row stage: ``w``-byte windows fetched as aligned 128-byte text rows
+    (w // 128 + 1 a lane) and shifted in-row; element gathers where the
+    padded text is not a multiple of 128 (tiny corpora)."""
+    n_pad_t = text.shape[0]
+    offs = torch.arange(w, device=text.device)
+    aligned = n_pad_t % 128 == 0 and n_pad_t >= 256
+    text2d = text.view(-1, 128) if aligned else None
+    row_offs = torch.arange(w // 128 + 1, device=text.device)
+
+    def gat(base):
+        pos = base[:, None] + offs[None, :]
+        if aligned:
+            rows = torch.clamp((base // 128)[:, None] + row_offs[None, :],
+                               max=n_pad_t // 128 - 1)
+            wide = text2d[rows].reshape(base.shape[0], -1)
+            v = wide.gather(1, (base % 128)[:, None] + offs[None, :])
+        else:
+            v = text[torch.clamp(pos, max=n_pad_t - 1)]
+        return torch.where(pos < n_text, v, PAD)
+
+    return _refine_blocks(a, b, lcp, flag, s_pad, w, row_block, max_rounds,
+                          n_text, lambda pa, pb: _equal_run(gat(pa), gat(pb)))
+
+
+def _text_words3(text: torch.Tensor) -> torch.Tensor:
+    """9-bit symbols of the padded text, 3 an int32 (symbol = byte + 1;
+    PAD and past the end are 0)."""
+    n_pad = text.shape[0]
+    sym = torch.where(text >= 0, text + 1, 0).to(I32)
+    n_w = n_pad // 3 + 2
+    s = torch.cat([sym, sym.new_zeros((3 * n_w - n_pad,))])
+    return (s[0::3] << 18) | (s[1::3] << 9) | s[2::3]
+
+
+def _packed_window(tw: torch.Tensor, base: torch.Tensor, S: int):
+    """(lanes, S) symbols from byte offset ``base``: S // 3 + 2 gathered
+    words a lane, then one static extraction per phase (base mod 3)."""
+    dev = tw.device
+    k = S // 3 + 2
+    r = base % 3
+    w = tw[torch.clamp((base // 3)[:, None]
+                       + torch.arange(k, device=dev)[None, :],
+                       0, tw.shape[0] - 1)]
+    j = torch.arange(S, device=dev)
+    outs = [(w[:, (p + j) // 3] >> (18 - 9 * ((p + j) % 3)).to(I32)) & 0x1FF
+            for p in range(3)]
+    return torch.where((r == 0)[:, None], outs[0],
+                       torch.where((r == 1)[:, None], outs[1], outs[2]))
+
+
+def _bulk_refine_packed(tw: torch.Tensor, n_text: int, a, b, lcp, flag,
+                        s_pad: int, S: int, row_block: int, max_rounds: int):
+    """Packed stage: ``S``-symbol windows, 3 bytes a gathered element. Two
+    past-the-end symbols (0) would match; the in-bounds masks give the
+    boundary mismatch instead."""
+    offs = torch.arange(S, device=tw.device)
+
+    def equal_run(pa, pb):
+        in_a = pa[:, None] + offs[None, :] < n_text
+        in_b = pb[:, None] + offs[None, :] < n_text
+        eq = (_packed_window(tw, pa, S) == _packed_window(tw, pb, S))
+        return _run_length(eq & in_a & in_b)
+
+    return _refine_blocks(a, b, lcp, flag, s_pad, S, row_block, max_rounds,
+                          n_text, equal_run)
+
+
+def _bulk_compact_prefix(a, b, lcp, flag, perm, s_pad: int) -> None:
+    """Move the live rows of the first ``s_pad`` rows to its front, rows
+    as a unit, in place."""
+    f = flag[:s_pad]
+    order = torch.cat([torch.nonzero(f).flatten(),
+                       torch.nonzero(~f).flatten()])
+    for x in (a, b, lcp, flag, perm):
+        x[:s_pad] = x[:s_pad][order]
+
+
+def _bulk_finish(lcp_perm: torch.Tensor, perm: torch.Tensor,
+                 n_table: int) -> torch.Tensor:
+    """Scatter the LCPs back to rank order; entry 0 and pads are 0."""
+    lcp = torch.empty_like(lcp_perm)
+    lcp[perm] = lcp_perm
+    idx = torch.arange(lcp.shape[0], device=lcp.device)
+    return torch.where((idx > 0) & (idx < n_table), lcp, 0)
+
+
+def _lcp_bulk(text_dev: torch.Tensor, n: int, tab_dev: torch.Tensor, pk,
+              trace: list | None = None):
+    """The bulk ladder: the final uint32 LCP array, or None when
+    lanes deeper than LCP_BULK_MAX_OFF remain (the caller takes Kasai).
+
+    ``trace`` (optional list) receives one dict a stage: its kind, window,
+    lanes, round cap, live lanes in and left, and host seconds (each stage
+    ends on a readback)."""
+    n_pad = int(tab_dev.shape[0])
+    t0 = time.perf_counter()
+    with record_function("L1_base_compact"):
+        a, b, lcp, flag, perm, n_act = _lcp_base_compact(tab_dev, n, pk)
+    if trace is not None:
+        trace.append({"stage": "base", "survivors": n_act,
+                      "s": time.perf_counter() - t0})
+    tw = None
+    prev_act = n_act
+    for i, (kind, w, rounds) in enumerate(LCP_BULK_LADDER):
+        if n_act == 0:
+            break
+        t0 = time.perf_counter()
+        scope = "L2_packed_stage" if kind == "packed" else "L3_rows_stage"
+        with record_function(scope):
+            if i > 0:
+                _bulk_compact_prefix(a, b, lcp, flag, perm,
+                                     min(bucket_size(prev_act, minimum=256),
+                                         n_pad))
+            s_pad = min(bucket_size(n_act, minimum=256), n_pad)
+            if i == len(LCP_BULK_LADDER) - 1 and rounds == 0:
+                rounds = max(1, LCP_BULK_MAX_OFF // w)
+            if kind == "packed":
+                if tw is None:
+                    tw = _text_words3(text_dev)
+                lcp, flag, n_left = _bulk_refine_packed(
+                    tw, n, a, b, lcp, flag, s_pad, w,
+                    _pow2_block((1 << 25) // w, s_pad), rounds)
+            else:
+                lcp, flag, n_left = _bulk_refine_prefix(
+                    text_dev, n, a, b, lcp, flag, s_pad, w,
+                    _pow2_block((1 << 27) // w, s_pad), rounds)
+        if trace is not None:
+            trace.append({"stage": kind, "w": w, "lanes": s_pad,
+                          "rounds": rounds, "survivors": n_act,
+                          "left": n_left, "s": time.perf_counter() - t0})
+        prev_act, n_act = n_act, n_left
+    if n_act > 0:
+        return None  # beyond the bulk budget: linear Kasai wins
+    with record_function("L4_finish"):
+        out = _bulk_finish(lcp, perm, n)[:n].cpu().numpy()
+    return out.astype(np.uint32)
+
+
 def _kasai_route(text_bytes: np.ndarray, sa: np.ndarray) -> np.ndarray:
     """Linear-time host route for the auto fallback (numpy; the native
     C++ Kasai is not ported, ROADMAP.md Queue 1 item 4)."""
@@ -180,9 +393,8 @@ def lcp_from_sa(text_bytes: np.ndarray, sa: np.ndarray, block: int = 128,
     ``method="auto"`` routes by the survivor census, as the JAX package
     does: at most LCP_SURV_CHUNKED survivors -> the chunked keyed refine
     with a LCP_MAX_OFF budget (Kasai if lanes stay unresolved); else at
-    most n/64 -> the bulk engine, not ported (``NotImplementedError``;
-    below 2^17 bytes n/64 < LCP_SURV_CHUNKED, so it is never taken);
-    else the host Kasai. A corpus of >= 2^20 bytes without ``pk``
+    most n/64 -> the bulk ladder (Kasai if lanes outlast
+    LCP_BULK_MAX_OFF); else the host Kasai. A corpus of >= 2^20 bytes without ``pk``
     is first sampled on the host and sent to Kasai when clearly dense.
     ``method="device"`` runs the unbounded keyed refine.
 
@@ -213,10 +425,10 @@ def lcp_from_sa(text_bytes: np.ndarray, sa: np.ndarray, block: int = 128,
             if unresolved > 0:
                 return _kasai_route(t_np, sa)
         elif n_surv <= n // 64:
-            raise NotImplementedError(
-                f"{n_surv} LCP survivors route to the staged bulk engine "
-                "(_lcp_bulk), which is not ported to suffix_torch yet; see "
-                "ROADMAP.md Queue 1 item 10")
+            res = _lcp_bulk(t_dev, n, tab_dev, pk)
+            if res is None:
+                return _kasai_route(t_np, sa)
+            return res
         else:
             return _kasai_route(t_np, sa)
     elif method == "device":

@@ -11,10 +11,9 @@ return the same array:
   stop when every rank is distinct.
 
 Routes (``device_build_closure``): the exact-periodic closed form, the
-alphabet-adaptive dense-coded initial sort, the two-phase tie-compacted
-engine, and the byte ladder. The patched near-periodic engine
-(``suffix_tpu/ops/patched.py``) is not ported: a corpus that routes there
-raises ``NotImplementedError`` instead of running another engine.
+patched near-periodic engine (``ops/patched.py``; a corpus whose host
+tables are over budget falls through), the alphabet-adaptive dense-coded
+initial sort, the two-phase tie-compacted engine, and the byte ladder.
 
 What changes from JAX to PyTorch:
 
@@ -47,6 +46,7 @@ import torch
 from torch.profiler import record_function
 
 from suffix_torch.device import resolve_device
+from suffix_torch.ops import patched
 from suffix_torch.ops.padding import PAD, bucket_size, bucket_size_fine
 from suffix_torch.ops.sort import lexsort
 
@@ -505,10 +505,6 @@ def _exact_min_period(arr: np.ndarray) -> int | None:
 
 _PROBE_ANCHORS = (0, 7 * PROBE_LEN + 1, (1 << 16) + 13)
 PATCH_MAX_DEFECTS = 512
-# Route gate of the patched engine (suffix_tpu/ops/patched.py), copied so
-# that the port refuses exactly the corpora the JAX package sends there.
-PATCH_MIN_TILES = 8
-PATCH_KMAX = 4096
 
 
 def _period_probe(arr: np.ndarray):
@@ -613,10 +609,7 @@ def device_build_closure(arr: np.ndarray, n_pad: int, index_dtype=I32,
 
     ``stats`` (optional dict): routing facts now, and per dispatch the
     engine internals (rounds, h_final, tie trajectory, or the two-phase
-    switch state), the keys ``suffix_tpu/utils/metrics.py`` fills.
-
-    A near-periodic corpus that the JAX package sends to its patched
-    engine raises ``NotImplementedError``: that engine is not ported."""
+    switch state), the keys ``suffix_tpu/utils/metrics.py`` fills."""
     dev = resolve_device(device)
     n = int(arr.shape[0])
     lcp_lb = None
@@ -634,11 +627,16 @@ def device_build_closure(arr: np.ndarray, n_pad: int, index_dtype=I32,
         if best is not None:
             pb, cntb, _, defb = best
             if (defb is not None and cntb > 0
-                    and PATCH_MIN_TILES <= n // pb <= PATCH_KMAX):
-                raise NotImplementedError(
-                    f"near-periodic corpus (period {pb}, {cntb} defects) "
-                    "routes to the patched engine, which is not ported to "
-                    "suffix_torch yet; see ROADMAP.md Queue 1 item 9")
+                    and patched.PATCH_MIN_TILES <= n // pb
+                    <= patched.PATCH_KMAX):
+                # Nearly periodic (sparse verified defects): the
+                # phase-pure closed-form engine, unless its host tables
+                # refuse.
+                disp = patched.patched_dispatch(arr, pb, defb, n_pad,
+                                                index_dtype, stats=stats,
+                                                device=dev)
+                if disp is not None:
+                    return disp
     plan, sigma, repeat_hit = (
         _adaptive_plan(arr, n_pad, with_meta=True, lcp_lb=lcp_lb)
         if n_pad >= ADAPTIVE_PACK_MIN else (None, 0, False))

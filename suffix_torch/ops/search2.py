@@ -1,6 +1,17 @@
 """Batched query engine: packed prefix keys + merge-join bounds.
 
-Port of the flat-key route of ``suffix_tpu/ops/search2.py``:
+Port of ``suffix_tpu/ops/search2.py``'s merge-join engine, on all three of
+its index layouts (routed by ``table.SuffixTable._ensure_device``):
+
+- flat keys (``build_query_index``, with_keys=True): every key word in
+  rank order plus fences and blocks;
+- deep keyless (``build_query_index_keyless``): 8 fence words (exact to 24
+  bytes) and a second block of 6 ext words, so patterns to 42 bytes never
+  byte-refine (``bounds_batch_merge_deep``);
+- lean keyless (``build_query_index(with_keys=False)`` from LEAN_MIN_PAD
+  on): fences and blocks written one word at a time.
+
+The engine:
 
 1. **Packed prefix keys** (built once per index, ``packed_keys_rank_order``
    — also the LCP engine's input): for every rank r, the
@@ -16,13 +27,18 @@ Port of the flat-key route of ``suffix_tpu/ops/search2.py``:
    finishes the job.
 3. **Refine** (only for queries longer than the key depth): a lockstep
    binary search by byte comparison inside the key-equal range, a host
-   loop with one readback per round over the long queries only.
+   loop with one readback per round over the long queries only. The deep
+   index first probes its ext words (``_deep_probe``), then byte-refines
+   only patterns past their 42-byte coverage, from that offset on.
 
-Not ported yet: the probe engine (``bounds_batch_fast``) and its LUT,
-the keyless/deep routes and the memory-lean build.
+Where JAX sorts a lane selector into static buckets, the port compacts
+the long lanes with ``nonzero`` (exact counts). Not ported yet: the probe
+engine (``bounds_batch_fast``) and its LUT.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -37,6 +53,17 @@ EXT_KEY_WORDS = 12  # on-demand wide keys: exact merge join to 36 bytes
 WORD_MASK = (1 << (SYM_BITS * SYMS_PER_WORD)) - 1  # 27 bits
 PAD_KEY = 0x7FFFFFFF  # above every real key word
 I32 = torch.int32
+
+
+# Above this padded size the index is built one word at a time
+# (``_build_query_index_lean``); the one-program build's peak was measured
+# past a 16 GB chip's memory there. Copied from the JAX package.
+LEAN_MIN_PAD = 1 << 28
+# Deep keyless index: 8 fence words, 6 ext block words (coverage 42 B),
+# up to this padded size. Copied from the JAX package.
+DEEP_FENCE_WORDS = 8
+DEEP_EXT_WORDS = 6
+DEEP_EXT_MAX_PAD = 1 << 27
 
 
 def _pack3(s0, s1, s2):
@@ -58,23 +85,80 @@ def _fence_stride(n_pad: int) -> int:
 
 
 def build_query_index(text: torch.Tensor, table: torch.Tensor, n_table: int,
-                      key_words: int = KEY_WORDS, stride: int | None = None):
-    """(pk, pk_fence, pk_block): flat rank-order key words
-    (``packed_keys_rank_order``), fence words (every ``stride``-th key)
-    and the blocked layout (``None`` at stride 1), whose row b holds word
-    w of ranks [b*stride, (b+1)*stride) at columns [w*stride, (w+1)*stride).
+                      key_words: int = KEY_WORDS, stride: int | None = None,
+                      with_keys: bool = True):
+    """(pk, pk_fence, pk_block): flat rank-order key words (``None`` when
+    ``with_keys`` is False), fence words (every ``stride``-th key) and the
+    blocked layout (``None`` at stride 1), whose row b holds word w of
+    ranks [b*stride, (b+1)*stride) at columns [w*stride, (w+1)*stride).
 
     ``text`` is the PAD-padded int32 text, ``table`` the padded int32
-    suffix table (entries past ``n_table`` are ignored)."""
+    suffix table (entries past ``n_table`` are ignored). A keyless build
+    at n_pad >= LEAN_MIN_PAD with stride > 1 takes the one-word-at-a-time
+    ``_build_query_index_lean``; any other build that large warns."""
     n_pad = text.shape[0]
-    pk = packed_keys_rank_order(text, table, n_table, key_words)
     if stride is None:
         stride = _fence_stride(n_pad)
+    if not with_keys and stride > 1 and n_pad >= LEAN_MIN_PAD:
+        return _build_query_index_lean(text, table, n_table, key_words,
+                                       stride)
+    if n_pad >= LEAN_MIN_PAD:
+        warnings.warn(
+            f"one-program query-index build at n_pad={n_pad} "
+            f"(>= LEAN_MIN_PAD={LEAN_MIN_PAD}) may exceed the device "
+            "memory; pass with_keys=False (and stride>1) for the memory-lean "
+            "stepped build", RuntimeWarning, stacklevel=2)
+    isa = _isa_padded(table, n_table)
+    pk, fences = [], []
+    block = _new_block(n_pad, key_words, stride, text.device)
+    for w in range(key_words):
+        (word,) = _words_rank_order(text, isa, n_table, w, w + 1, key_words)
+        if with_keys:
+            pk.append(word)
+        fences.append(word[::stride].contiguous() if stride > 1 else word)
+        if block is not None:
+            _blk_write(block, word, w, stride)
+    return (tuple(pk) if with_keys else None), tuple(fences), block
+
+
+def _new_block(n_pad: int, words: int, stride: int, device):
+    """A zeroed (n_pad / stride, words * stride) block, None at stride 1."""
     if stride == 1:
-        return pk, pk, None
-    pk_fence = tuple(word[::stride].contiguous() for word in pk)
-    pk_block = torch.stack([word.view(-1, stride) for word in pk], dim=1)
-    return pk, pk_fence, pk_block.reshape(n_pad // stride, key_words * stride)
+        return None
+    return torch.zeros((n_pad // stride, words * stride), dtype=I32,
+                       device=device)
+
+
+def _blk_write(block: torch.Tensor, word: torch.Tensor, w: int,
+               stride: int) -> None:
+    """Write ``word`` into column group ``w`` of ``block``, in place."""
+    block.view(block.shape[0], -1, stride)[:, w] = word.view(-1, stride)
+
+
+def _packed_word(text: torch.Tensor, table: torch.Tensor, n_table: int,
+                 w: int, key_words: int) -> torch.Tensor:
+    """Key word ``w`` alone, in rank order, by a gather through the table
+    (one step of the lean build); rows past ``n_table`` hold PAD_KEY."""
+    n_pad = text.shape[0]
+    word = _text_word(text, w, key_words)[table.long()]
+    real = torch.arange(n_pad, device=text.device) < n_table
+    return torch.where(real, word, PAD_KEY)
+
+
+def _build_query_index_lean(text: torch.Tensor, table: torch.Tensor,
+                            n_table: int, key_words: int, stride: int):
+    """The keyless index as ``key_words`` steps: the block, one word in
+    flight and its temporaries are the peak (no inverse SA, no word
+    list). Returns (None, pk_fence, pk_block), as build_query_index."""
+    n_pad = text.shape[0]
+    block = _new_block(n_pad, key_words, stride, text.device)
+    fences = []
+    for w in range(key_words):
+        word = _packed_word(text, table, n_table, w, key_words)
+        fences.append(word[::stride].contiguous())
+        _blk_write(block, word, w, stride)
+        del word
+    return None, tuple(fences), block
 
 
 def _batch_query_keys(queries: torch.Tensor, qlens: torch.Tensor,
@@ -149,15 +233,20 @@ def _block_count(pk_block: torch.Tensor, blocks: torch.Tensor, qk: list,
 
 def _refine(text: torch.Tensor, n_text: int, table: torch.Tensor,
             queries: torch.Tensor, qlens: torch.Tensor,
-            start: torch.Tensor, end: torch.Tensor):
+            start: torch.Tensor, end: torch.Tensor, sufi_off: int = 0):
     """Byte-level lower/upper bounds inside [start, end) for every row, in
     lockstep: one host readback per round; rows leave when both of their
-    searches have converged."""
+    searches have converged.
+
+    ``sufi_off`` shifts the suffix side: when the range is already exact
+    through ``sufi_off`` bytes (the deep index), pass the query tails
+    (queries[:, sufi_off:], qlens - sufi_off) and each probe compares
+    suffix(sufi + sufi_off) with the tail."""
     n_tab = table.shape[0]
 
     def sufi_at(mid):
         got = table[torch.clamp(mid, 0, n_tab - 1).long()]
-        return torch.where(mid < n_tab, got, 0).to(I32)
+        return torch.where(mid < n_tab, got, 0).to(I32) + sufi_off
 
     ll, lr = start.clone(), end.clone()
     ul, ur = start.clone(), end.clone()
@@ -175,6 +264,35 @@ def _refine(text: torch.Tensor, n_text: int, table: torch.Tensor,
     return ll, ul
 
 
+def _merge_bounds(pk_fence, pk_block, queries: torch.Tensor,
+                  qlens: torch.Tensor, n_table: int):
+    """(start, end) exact through 3*len(pk_fence) bytes: the fence merge
+    join, then a block count where the fences are strided."""
+    key_words = len(pk_fence)
+    qk, qk_hi = _batch_query_keys(queries, qlens, key_words)
+    r_lo, r_up = _fence_ranks_both(list(pk_fence), qk, qk_hi)
+    if pk_block is None:
+        start = r_lo  # first rank with pk >= qk
+        end = r_up    # first rank with pk > qk_hi
+    else:
+        stride = pk_block.shape[1] // key_words
+        b_lo = torch.clamp(r_lo - 1, min=0)
+        start = b_lo * stride + _block_count(pk_block, b_lo, qk,
+                                             less_equal=False)
+        b_up = torch.clamp(r_up - 1, min=0)
+        end = b_up * stride + _block_count(pk_block, b_up, qk_hi,
+                                           less_equal=True)
+    return torch.clamp(start, max=n_table), torch.clamp(end, max=n_table)
+
+
+def _start_count(start, end, qlens, n_table: int):
+    """(start, count); an empty query or table matches nothing."""
+    empty = (qlens == 0) | (n_table == 0)
+    start = torch.where(empty, 0, start)
+    count = torch.where(empty, 0, torch.clamp(end - start, min=0))
+    return start, count
+
+
 def bounds_batch_merge(text: torch.Tensor, n_text: int, table: torch.Tensor,
                        n_table: int, pk_fence, pk_block, queries: torch.Tensor,
                        qlens: torch.Tensor, max_qlen: int):
@@ -182,25 +300,8 @@ def bounds_batch_merge(text: torch.Tensor, n_text: int, table: torch.Tensor,
 
     Exact for qlen <= 3*len(pk_fence); longer queries go through the
     byte refine on their key-equal range."""
-    key_words = len(pk_fence)
-    key_syms = 3 * key_words
-    qk, qk_hi = _batch_query_keys(queries, qlens, key_words)
-    stride = 1 if pk_block is None else pk_block.shape[1] // key_words
-
-    r_lo, r_up = _fence_ranks_both(list(pk_fence), qk, qk_hi)
-    if stride == 1:
-        start = r_lo  # first rank with pk >= qk
-        end = r_up    # first rank with pk > qk_hi
-    else:
-        b_lo = torch.clamp(r_lo - 1, min=0)
-        start = b_lo * stride + _block_count(pk_block, b_lo, qk,
-                                             less_equal=False)
-        b_up = torch.clamp(r_up - 1, min=0)
-        end = b_up * stride + _block_count(pk_block, b_up, qk_hi,
-                                           less_equal=True)
-    start = torch.clamp(start, max=n_table)
-    end = torch.clamp(end, max=n_table)
-
+    key_syms = 3 * len(pk_fence)
+    start, end = _merge_bounds(pk_fence, pk_block, queries, qlens, n_table)
     if max_qlen > key_syms:
         long_q = torch.nonzero(qlens > key_syms).flatten()
         if long_q.numel():
@@ -209,11 +310,7 @@ def bounds_batch_merge(text: torch.Tensor, n_text: int, table: torch.Tensor,
                                      end[long_q])
             start = start.index_put((long_q,), r_start)
             end = end.index_put((long_q,), r_end)
-
-    empty = (qlens == 0) | (n_table == 0)
-    start = torch.where(empty, 0, start)
-    count = torch.where(empty, 0, torch.clamp(end - start, min=0))
-    return start, count
+    return _start_count(start, end, qlens, n_table)
 
 
 def _isa_padded(table: torch.Tensor, n_table: int) -> torch.Tensor:
@@ -226,22 +323,149 @@ def _isa_padded(table: torch.Tensor, n_table: int) -> torch.Tensor:
     return isa
 
 
-def packed_keys_rank_order(text: torch.Tensor, table: torch.Tensor,
-                           n_table: int, key_words: int = KEY_WORDS):
-    """Flat rank-order packed keys: word w of rank r packs the symbols
-    (byte + 1; PAD and past the end are 0) at table[r] + 3w .. +3w+2.
-    The words are computed in position order and scattered to rank order
-    through the inverse SA; rows past ``n_table`` hold PAD_KEY. The query
-    index's keys and the LCP engine's input."""
+def _text_word(text: torch.Tensor, w: int, key_words: int) -> torch.Tensor:
+    """Key word ``w`` of every position (home order): the symbols (byte +
+    1; PAD and past the end are 0) at p + 3w .. p + 3w + 2."""
     n_pad = text.shape[0]
-    isa = _isa_padded(table, n_table).long()
     sym = (text + 1).to(I32)
     sym_ext = torch.cat([sym, sym.new_zeros((3 * key_words,))])
+    return _pack3(*(sym_ext[k:k + n_pad] for k in range(3 * w, 3 * w + 3)))
+
+
+def _words_rank_order(text: torch.Tensor, isa: torch.Tensor, n_table: int,
+                      w_lo: int, w_hi: int, key_words: int):
+    """Key words [w_lo, w_hi) in rank order: each computed in position
+    order and scattered through the inverse SA; rows past ``n_table``
+    hold PAD_KEY."""
+    n_pad = text.shape[0]
+    dest = isa.long()
     real = torch.arange(n_pad, device=text.device) < n_table
     out = []
-    for w in range(key_words):
-        s = [sym_ext[k:k + n_pad] for k in range(3 * w, 3 * w + 3)]
-        word = torch.empty_like(sym)
-        word[isa] = _pack3(s[0], s[1], s[2])
+    for w in range(w_lo, w_hi):
+        word = torch.empty((n_pad,), dtype=I32, device=text.device)
+        word[dest] = _text_word(text, w, key_words)
         out.append(torch.where(real, word, PAD_KEY))
     return tuple(out)
+
+
+def packed_keys_rank_order(text: torch.Tensor, table: torch.Tensor,
+                           n_table: int, key_words: int = KEY_WORDS):
+    """Flat rank-order packed keys: word w of rank r packs the symbols at
+    table[r] + 3w .. +3w+2. The query index's keys and the LCP engine's
+    input."""
+    return _words_rank_order(text, _isa_padded(table, n_table), n_table, 0,
+                             key_words, key_words)
+
+
+def build_query_index_keyless(text: torch.Tensor, table: torch.Tensor,
+                              n_table: int, key_words: int = KEY_WORDS,
+                              stride: int | None = None, ext_words: int = 0):
+    """(fences, block, ext_block): the keyless index of huge corpora.
+
+    ``ext_words`` > 0 also builds a second block of words key_words ..
+    key_words + ext_words - 1 in the same layout (the deep tier of
+    ``bounds_batch_merge_deep``); fences stay ``key_words`` wide. Two
+    passes over the same inverse SA, so at most ``key_words`` word arrays
+    are alive beside the blocks."""
+    n_pad = text.shape[0]
+    if stride is None:
+        stride = _fence_stride(n_pad)
+    if stride == 1 and ext_words:
+        raise ValueError("the ext tier needs a blocked layout (stride > 1)")
+    total = key_words + ext_words
+    isa = _isa_padded(table, n_table)
+    words = _words_rank_order(text, isa, n_table, 0, key_words, total)
+    if stride == 1:
+        return words, None, None
+    fences = tuple(w[::stride].contiguous() for w in words)
+    block = _new_block(n_pad, key_words, stride, text.device)
+    for w, wv in enumerate(words):
+        _blk_write(block, wv, w, stride)
+    del words
+    ext_block = None
+    if ext_words:
+        ext = _words_rank_order(text, isa, n_table, key_words, total, total)
+        ext_block = _new_block(n_pad, ext_words, stride, text.device)
+        for w, wv in enumerate(ext):
+            _blk_write(ext_block, wv, w, stride)
+        del ext
+    return fences, block, ext_block
+
+
+def _ext_word_at(ext_block: torch.Tensor, stride: int, ranks: torch.Tensor,
+                 w: int) -> torch.Tensor:
+    """Ext word ``w`` at each rank: rank r lives at row r // stride, column
+    w * stride + r % stride of the block."""
+    flat = ext_block.view(-1)
+    r = ranks.long()
+    idx = (r // stride) * ext_block.shape[1] + w * stride + r % stride
+    return flat[torch.clamp(idx, 0, flat.shape[0] - 1)]
+
+
+def _deep_probe(ext_block: torch.Tensor, stride: int, qke: list,
+                qke_hi: list, start: torch.Tensor, end: torch.Tensor):
+    """Narrow [start, end) (exact through the fence words) to exactness
+    through the ext words: a fused lower/upper binary search, one host
+    readback a step; each probe gathers len(qke) words a lane."""
+
+    def cmp(mid, keys, less: bool):
+        out = torch.zeros(mid.shape, dtype=torch.bool, device=mid.device)
+        eq = torch.ones_like(out)
+        for w, key in enumerate(keys):
+            v = _ext_word_at(ext_block, stride, mid, w)
+            out = out | (eq & ((v < key) if less else (v > key)))
+            eq = eq & (v == key)
+        return out
+
+    ll, lr = start.clone(), end.clone()
+    ul, ur = start.clone(), end.clone()
+    while bool(((ll < lr) | (ul < ur)).any()):
+        l_act, u_act = ll < lr, ul < ur
+        lmid = (ll + lr) // 2
+        umid = (ul + ur) // 2
+        lt = cmp(lmid, qke, True)       # key < qk: lower bound is right
+        gt = cmp(umid, qke_hi, False)   # key > qk_hi: upper bound is left
+        ll = torch.where(l_act & lt, lmid + 1, ll)
+        lr = torch.where(l_act & ~lt, lmid, lr)
+        ul = torch.where(u_act & ~gt, umid + 1, ul)
+        ur = torch.where(u_act & gt, umid, ur)
+    return ll, ul
+
+
+def bounds_batch_merge_deep(text: torch.Tensor, n_text: int,
+                            table: torch.Tensor, n_table: int, pk_fence,
+                            pk_block: torch.Tensor, ext_block: torch.Tensor,
+                            queries: torch.Tensor, qlens: torch.Tensor,
+                            max_qlen: int):
+    """(start, count) per query, int32, on the deep keyless index.
+
+    The merge join is exact to 3*len(pk_fence) bytes; longer patterns
+    (compacted) probe the ext words, exact to the coverage 3*(fence +
+    ext words); patterns past the coverage (compacted again) byte-refine
+    from that offset on."""
+    key_words = len(pk_fence)
+    key_syms = 3 * key_words
+    stride = pk_block.shape[1] // key_words
+    ext_words = ext_block.shape[1] // stride
+    cov = 3 * (key_words + ext_words)
+    start, end = _merge_bounds(pk_fence, pk_block, queries, qlens, n_table)
+    if max_qlen > key_syms:
+        lane = torch.nonzero(qlens > key_syms).flatten()
+        if lane.numel():
+            q_sel, ql_sel = queries[lane], qlens[lane]
+            qke, qke_hi = _batch_query_keys(q_sel, ql_sel,
+                                            key_words + ext_words)
+            s2, e2 = _deep_probe(ext_block, stride, qke[key_words:],
+                                 qke_hi[key_words:], start[lane], end[lane])
+            if max_qlen > cov:
+                lane2 = torch.nonzero(ql_sel > cov).flatten()
+                if lane2.numel():
+                    r_s, r_e = _refine(text, n_text, table,
+                                       q_sel[lane2][:, cov:],
+                                       ql_sel[lane2] - cov, s2[lane2],
+                                       e2[lane2], sufi_off=cov)
+                    s2 = s2.index_put((lane2,), r_s)
+                    e2 = e2.index_put((lane2,), r_e)
+            start = start.index_put((lane,), s2)
+            end = end.index_put((lane,), e2)
+    return _start_count(start, end, qlens, n_table)

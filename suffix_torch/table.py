@@ -16,8 +16,10 @@ The table carries its torch ``device``; ``device=None`` means CUDA and
 raises where there is none. Engines: ``"device"`` (the default, prefix
 doubling, ops/prefix_doubling.py), ``"sais"`` (the recursive SA-IS
 pipeline, ops/sais.py), ``"auto"`` and ``"naive"``. Every query goes
-through the device merge-join engine (ops/search2.py); ``lcp_lens``
-through ops/lcp.py.
+through the device merge-join engine (ops/search2.py) on the index layout
+the JAX package picks for the size: flat keys up to FLAT_KEYS_MAX_PAD, the
+deep keyless index up to search2.DEEP_EXT_MAX_PAD, the lean keyless build
+past it; ``lcp_lens`` through ops/lcp.py.
 """
 
 from __future__ import annotations
@@ -67,8 +69,10 @@ class SuffixTable:
     # merge-join tie word is 27 bits (ops/search2.py _fence_ranks_both).
     MAX_QUERY_BATCH = 1 << 18
 
-    # Largest padded index whose flat key copy the port builds; larger
-    # indexes need the keyless routes, which are not ported yet.
+    # Largest padded index that keeps the flat key copy (and the lazy
+    # 12-word keys); larger ones keep fences and blocks only. The JAX
+    # package's value, set for a 16 GB device; the port's own tuning is
+    # later work.
     FLAT_KEYS_MAX_PAD = 1 << 26
 
     def __init__(self, text, table: np.ndarray, *, _was_str: bool | None = None,
@@ -91,6 +95,7 @@ class SuffixTable:
         self._dev_table = None
         self._pk = self._pk_fence = self._pk_block = None
         self._ext = None  # 12-word (fences, blocks), on the first long query
+        self._ext_block = None  # the deep keyless index's ext words
         self._init_lock = threading.RLock()  # guards the lazy device state
         self.build_stats = None
 
@@ -105,9 +110,9 @@ class SuffixTable:
         Engines (all give the same, unique suffix array):
 
         - ``"device"`` (default): prefix doubling, ops/prefix_doubling.py,
-          with the JAX package's routes (periodic, adaptive, two-phase,
-          ladder); ``padding`` and ``index_dtype`` ("u32"/"u64"/"auto")
-          apply to it;
+          with the JAX package's routes (periodic, patched, adaptive,
+          two-phase, ladder); ``padding`` and ``index_dtype``
+          ("u32"/"u64"/"auto") apply to it;
         - ``"sais"``: the SA-IS pipeline on the device, ops/sais.py;
         - ``"auto"``: the JAX package takes its native engine for small
           texts when that library is present; the native engine is not
@@ -215,8 +220,9 @@ class SuffixTable:
     def lcp_lens(self, method: str = "auto") -> np.ndarray:
         """LCP array (uint32), reference definition src/table.rs:348-361.
 
-        ``method``: "auto" (the keyed device refine, routed to the host
-        Kasai on survivor-dense corpora, ops/lcp.py), "device" (the
+        ``method``: "auto" (the keyed device refine or the bulk ladder by
+        survivor count, the host Kasai on survivor-dense corpora or LCPs
+        past the ladder's budget, ops/lcp.py), "device" (the
         unbounded keyed refine) or "kasai" (host numpy). "native" raises:
         that engine is not ported. All give the same array."""
         if method in ("auto", "device"):
@@ -240,19 +246,30 @@ class SuffixTable:
                 return
             n = len(self)
             n_pad = bucket_size(max(n, 1))
-            if n_pad > self.FLAT_KEYS_MAX_PAD:
-                raise NotImplementedError(
-                    f"padded index size {n_pad} > FLAT_KEYS_MAX_PAD="
-                    f"{self.FLAT_KEYS_MAX_PAD} needs the keyless query "
-                    "routes, which are not ported yet (ROADMAP.md Queue 1)")
             t = np.full((n_pad,), PAD, dtype=np.int32)
             t[:n] = self._bytes
             tab = np.zeros((n_pad,), dtype=np.int32)
             tab[:n] = self._table
             dev_text = torch.from_numpy(t).to(self.device)
             self._dev_table = torch.from_numpy(tab).to(self.device)
-            self._pk, self._pk_fence, self._pk_block = (
-                search2.build_query_index(dev_text, self._dev_table, n))
+            if n_pad <= self.FLAT_KEYS_MAX_PAD:
+                self._pk, self._pk_fence, self._pk_block = (
+                    search2.build_query_index(dev_text, self._dev_table, n))
+            elif (n_pad <= search2.DEEP_EXT_MAX_PAD
+                  and n_pad < search2.LEAN_MIN_PAD):
+                # Deep keyless: 8 fence words and a 6-word ext block, so
+                # long patterns probe ext words instead of byte-refining.
+                self._pk_fence, self._pk_block, self._ext_block = (
+                    search2.build_query_index_keyless(
+                        dev_text, self._dev_table, n,
+                        key_words=search2.DEEP_FENCE_WORDS,
+                        ext_words=search2.DEEP_EXT_WORDS))
+            else:
+                # Past the ext tier's gate: fences and blocks only, built
+                # one word at a time from LEAN_MIN_PAD on.
+                _, self._pk_fence, self._pk_block = (
+                    search2.build_query_index(dev_text, self._dev_table, n,
+                                              with_keys=False))
             # Published last: readiness is keyed off _dev_text.
             self._dev_text = dev_text
 
@@ -289,15 +306,25 @@ class SuffixTable:
         full_lens = np.zeros((q_pad,), dtype=np.int32)
         full_lens[:nq] = qlens
         pk_fence, pk_block = self._pk_fence, self._pk_block
-        if int(qlens.max(initial=0)) > search2.KEY_SYMS:
-            # Long patterns: exact merge join to 36 bytes instead of
-            # byte-refining from 18; past that the refine still applies.
-            pk_fence, pk_block = self._ext_index()
+        max_live_qlen = int(qlens.max(initial=0))
         n = len(self)
-        starts, counts = search2.bounds_batch_merge(
-            self._dev_text, n, self._dev_table, n, pk_fence, pk_block,
-            torch.from_numpy(full_q).to(self.device),
-            torch.from_numpy(full_lens).to(self.device), m_pad)
+        q_dev = torch.from_numpy(full_q).to(self.device)
+        lens_dev = torch.from_numpy(full_lens).to(self.device)
+        if max_live_qlen > 3 * len(pk_fence) and self._ext_block is not None:
+            # Deep keyless route: merge join, ext-word probe on the long
+            # lanes, byte tail past the ext coverage.
+            starts, counts = search2.bounds_batch_merge_deep(
+                self._dev_text, n, self._dev_table, n, pk_fence, pk_block,
+                self._ext_block, q_dev, lens_dev, m_pad)
+        else:
+            if max_live_qlen > search2.KEY_SYMS and self._pk is not None:
+                # Long patterns: exact merge join to 36 bytes instead of
+                # byte-refining from 18; past that the refine still
+                # applies.
+                pk_fence, pk_block = self._ext_index()
+            starts, counts = search2.bounds_batch_merge(
+                self._dev_text, n, self._dev_table, n, pk_fence, pk_block,
+                q_dev, lens_dev, m_pad)
         return (starts.cpu().numpy()[:nq].astype(np.int64),
                 counts.cpu().numpy()[:nq].astype(np.int64))
 

@@ -6,8 +6,9 @@ Every corpus class of the JAX package's own tests (``test_adaptive_pack``,
 ``test_two_phase``, ``test_periodic``, ``test_conformance``) goes through
 both packages with the same routing gates: the suffix arrays and the route
 labels must be equal. ``collect_stats`` is held against
-``suffix_tpu.utils.metrics.build_stats``. The patched route is not ported
-and must raise. JAX is imported by a fixture, so that the CUDA legs
+``suffix_tpu.utils.metrics.build_stats``. The patched route's own battery
+is ``tests/test_torch_patched.py``. JAX is imported by a fixture, so that
+the CUDA legs
 (marker ``gpu``) run on a machine without it:
 ``python -m pytest tests/test_torch_doubling.py -m gpu --noconftest``.
 Tolerance: exact equality (every array is integer).
@@ -191,16 +192,13 @@ def test_periodic_long_period_and_fallthroughs(jpd, gates):
     assert _assert_parity(jpd, _tiled(block, 997 * 9 + 311)) == \
         "periodic(q=997)"
     assert pd._exact_min_period(_tiled(b"abab", 323)) == 2
-    # One flipped byte: no exact period; the JAX package takes its patched
-    # engine, which the port refuses.
+    # One flipped byte: no exact period; both packages take the patched
+    # engine.
     flipped = _tiled(bytes(rng.integers(0, 4, 64, dtype=np.uint8) + 97),
                      64 * 20).copy()
     flipped[700] ^= 1
     assert pd._exact_min_period(flipped) is None
-    n_pad = pd.bucket_size(flipped.size)
-    assert jpd.device_build_closure(flipped, n_pad)[1].startswith("patched(")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        pd.device_build_closure(flipped, n_pad, device="cpu")
+    assert _assert_parity(jpd, flipped).startswith("patched(q=64,")
     # Too few tiles for the closed form.
     few = _tiled(bytes(rng.integers(0, 4, 300, dtype=np.uint8) + 97), 1200)
     assert not _assert_parity(jpd, few).startswith("periodic")
@@ -244,7 +242,7 @@ def test_adaptive_plan_matches_jax(jpd):
 
 def _near_periodic() -> np.ndarray:
     """>= ADAPTIVE_PACK_MIN bytes, a 1000-byte period with two defects:
-    the JAX package routes it to its patched engine."""
+    both packages route it to their patched engines."""
     rng = np.random.default_rng(11)
     arr = _tiled(bytes(rng.integers(0, 26, 1000, dtype=np.uint8) + 97),
                  (1 << 17) + 500).copy()
@@ -253,14 +251,14 @@ def _near_periodic() -> np.ndarray:
 
 
 def test_patched_route_raises(jpd):
+    """Formerly the port raised here; now it takes the patched route at
+    the default gates, as the JAX package does, and returns its SA."""
     arr = _near_periodic()
-    n_pad = pd.bucket_size(arr.size)
-    _, jlabel = jpd.device_build_closure(arr, n_pad)
-    assert jlabel.startswith("patched(")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        pd.device_build_closure(arr, n_pad, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        SuffixTable.new(arr.tobytes(), device="cpu")
+    label = _assert_parity(jpd, arr, oracle=False)
+    assert label.startswith("patched(q=1000,")
+    table = SuffixTable.new(arr.tobytes(), device="cpu").table()
+    assert np.array_equal(table, _port_sa(arr))
+    assert verify_suffix_array(arr, table)
 
 
 @pytest.mark.parametrize("padding", ["pow2", "fine"])
@@ -468,7 +466,8 @@ def test_chip_smoke_labels_match_jax(jpd):
     cases = [(dna, cs.LABEL_DNA),
              (np.frombuffer(cs.dna_repeats(), np.uint8), cs.LABEL_DNA_REPEATS),
              (np.frombuffer(cs.text_repeats(), np.uint8),
-              cs.LABEL_TEXT_REPEATS)]
+              cs.LABEL_TEXT_REPEATS),
+             (np.frombuffer(cs.nearrep_text(), np.uint8), cs.LABEL_NEARREP)]
     for name, (_, _, label) in cs.GOLDEN_DEVICE.items():
         cases.append((np.frombuffer((FIXTURES / f"{name}.fasta").read_bytes(),
                                     np.uint8), label))

@@ -6,8 +6,9 @@ reference definition and Kasai.
 ``tests/test_lcp.py`` that stay off the bulk arm, with and without the
 table's packed keys; ``_lcp_keyed``, ``_lcp_padded``, ``_survivor_count``,
 the rank-order keys and the sampled census are held against their JAX
-counterparts on the same inputs. The bulk arm is not ported and must
-raise. JAX is imported by a fixture, so that the CUDA legs (marker
+counterparts on the same inputs; the bulk arm's own battery is
+``tests/test_torch_lcp_bulk.py``. JAX is imported by a fixture, so that
+the CUDA legs (marker
 ``gpu``) run on a machine without it:
 ``python -m pytest tests/test_torch_lcp.py -m gpu --noconftest``.
 Tolerance: exact equality (integer arrays; the sampled rate is the same
@@ -261,8 +262,9 @@ def test_sampled_dense_short_circuit(monkeypatch):
 
 
 def test_bulk_arm_raises(jax_mods, monkeypatch):
-    """Survivors in (LCP_SURV_CHUNKED, n/64]: the JAX package takes its
-    bulk engine, the port raises."""
+    """Survivors in (LCP_SURV_CHUNKED, n/64]: formerly the port raised
+    here; now both packages take their bulk ladders, and the arrays are
+    equal."""
     _, jlcp, _, JTable = jax_mods
     rng = np.random.default_rng(11)
     pieces = []
@@ -274,12 +276,14 @@ def test_bulk_arm_raises(jax_mods, monkeypatch):
     text = b"".join(pieces)
     for mod in (lcp_ops, jlcp):
         monkeypatch.setattr(mod, "LCP_SURV_CHUNKED", 4)
-    bulk = []
-    _spy(monkeypatch, jlcp, "_lcp_bulk", bulk)
-    JTable.new(text).lcp_lens()
-    assert bulk
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        _cpu(text).lcp_lens()
+    bulk, jbulk = [], []
+    _spy(monkeypatch, lcp_ops, "_lcp_bulk", bulk)
+    _spy(monkeypatch, jlcp, "_lcp_bulk", jbulk)
+    port = _cpu(text)
+    got = port.lcp_lens()
+    assert np.array_equal(got, JTable.new(text).lcp_lens())
+    assert bulk and jbulk
+    assert np.array_equal(got, quadratic_lcp(text, port.table()))
 
 
 def test_lcp_methods():

@@ -165,8 +165,8 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def _near_periodic() -> bytes:
-    """A 1000-byte period with two defects over 2^17 bytes: the JAX
-    package sends it to its patched engine, which is not ported."""
+    """A 1000-byte period with two defects over 2^17 bytes: both packages
+    send it to their patched engines."""
     rng = np.random.default_rng(11)
     block = rng.integers(0, 26, 1000, dtype=np.uint8) + 97
     arr = np.tile(block, 132)[:(1 << 17) + 500].copy()
@@ -176,18 +176,34 @@ def _near_periodic() -> bytes:
 
 @pytest.mark.parametrize("engine", ["device", "native", "auto"])
 def test_unported_engines_raise(engine):
-    """"native" is not ported; "device" (and "auto", which is "device"
-    in the port) raise on a corpus of the unported patched route."""
-    text = "banana" if engine == "native" else _near_periodic()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SuffixTable.new(text, engine=engine, device="cpu")
+    """"native" is not ported and raises; "device" (and "auto", which is
+    "device" in the port) build the patched route's corpus as the JAX
+    package does."""
+    if engine == "native":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SuffixTable.new("banana", engine=engine, device="cpu")
+        return
+    text = _near_periodic()
+    st = SuffixTable.new(text, engine=engine, device="cpu",
+                         collect_stats=True)
+    assert st.build_stats["engine"].startswith("patched(q=1000,")
+    assert np.array_equal(st.table(),
+                          suffix_tpu.SuffixTable.new(text).table())
 
 
 def test_keyless_size_raises():
-    st = SuffixTable.new("banana" * 4, device="cpu")
+    """Past FLAT_KEYS_MAX_PAD: formerly a raise; now the keyless routes
+    answer, as the JAX package's do."""
+    text = "banana" * 700  # past 2^12 padded bytes: a strided index
+    st = SuffixTable.new(text, device="cpu")
     st.FLAT_KEYS_MAX_PAD = 16
-    with pytest.raises(NotImplementedError):
-        st.count("ana")
+    ref = suffix_tpu.SuffixTable.new(text)
+    ref.query_route = "device"
+    ref.FLAT_KEYS_MAX_PAD = 16
+    queries = ["ana", "banana" * 7, "nab" * 15, "x", "a" * 30, ""]
+    assert np.array_equal(st.count_batch(queries), ref.count_batch(queries))
+    assert st._pk is None and st._ext_block is not None
+    assert st.count("ana") == 1400
 
 
 def test_certificate(dna_10k):
@@ -200,7 +216,9 @@ def test_certificate(dna_10k):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, suffix_torch, suffix_torch.utils.checkpoint, "
-            "suffix_torch.utils.verify, suffix_torch.ops.naive\n"
+            "suffix_torch.utils.verify, suffix_torch.ops.naive, "
+            "suffix_torch.ops.patched, suffix_torch.ops.lcp, "
+            "suffix_torch.ops.search2, suffix_torch.utils.textgen\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'suffix_tpu')]\n"
             "assert not bad, bad\n")
