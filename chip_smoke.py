@@ -28,12 +28,13 @@ Phases, each printing one JSON line:
               the battery's shape; then the bandwidth battery
               (ops/probes.py), whose run is the probes' path.
 4. golden   — SA-IS build of the 100 KB E. coli fixture against its golden
-              SA digest.
+              SA digest, with the pipeline's rounds per phase.
    golden_device — the default (doubling) build of both E. coli fixtures
               against their golden SA and LCP digests and the JAX
               package's route labels.
 5. build_4m — SA-IS build of a 4 MiB random DNA text (seed 0xD4A),
-              certified by the O(n) suffix-array certificate.
+              certified by the O(n) suffix-array certificate, with the
+              pipeline's rounds per phase.
 6. queries  — one count/positions batch of 262,144 14-byte queries drawn
               from the text, 4,096 random (mostly absent) ones, 256 of 24
               and of 48 bytes, and the empty query, checked against the raw
@@ -75,19 +76,43 @@ Phases, each printing one JSON line:
               queries per second.
    lean_128m — the lean keyless build's fences and blocks bit-equal to
               the one-program build's, with the peak memory of each.
+12. native  — build the C++ library and CPython extension of
+              ``suffix_torch/native`` (both must load), then both fixtures
+              through ``engine="native"`` and ``lcp_lens("native")``
+              against the golden digests.
+   build_small_native — µs of one small native build (11, 64 and 1,024
+              bytes) through the fast path and through ``__init__``,
+              beside the C SA-IS and ``resolve_device(None)`` alone.
+   build_4m_native — ``engine="auto"`` on the 4 MiB DNA text: label
+              ``native-sais``, the default build's table.
+   lcp_4m_nearrep, lcp_128m_text — ``lcp_lens()`` on the near-repeated
+              and 128 MiB tables: the sampler's route to the native Kasai
+              (wrappers count it once, the bulk ladder never), 65,536
+              sampled pairs checked against the bytes.
+   queries_hybrid — 4,096 single queries of each method on the 4 MiB
+              default-built table under ``query_route="auto"`` (the host
+              route, the extension's methods bound onto the table) and
+              1,024 under ``"device"``, every answer equal; a batch of 64
+              on the host and 65 on the device (wrappers); median µs a
+              call.
+   verify_device — ``verify(device=True)`` against the host certificate
+              on the 4 and 64 MiB tables and on a 4 MiB table with two
+              entries swapped; seconds of each form.
 
 byte_histogram's launch counter is set to 0 just before phase 5 and read
 just after phase 6 (its path is the SA-IS build); the probes' counters
 (minmax_stages' by path too) just before and after the battery, which
 must run the register path. The doubling and LCP path runs library
-operations only. The line before the last is the kernel table
-(``{"kernels": [...]}``); the last line is the device summary. Any failed
+operations only, the native and hybrid phases host C++. The line before
+the last is the kernel table (``{"kernels": [...]}``); the last line is
+the device summary. Any failed
 check raises, and the script exits non-zero without those two lines. It
 imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
 import statistics
@@ -130,6 +155,12 @@ N_TEXT_128M = 1 << 27  # bench.py's large text row
 N_QUERIES = 262144
 QLEN = 14
 LCP_SAMPLES = 1 << 16
+HYBRID_SINGLES = 4096  # single queries of each method on the host route
+HYBRID_DEVICE_SINGLES = 1024  # and on the device route
+SMALL_BUILDS = 20000  # small native builds a length and a round
+SMALL_BUILD_LENS = (11, 64, 1024)
+SMALL_BUILD_REPS = 5
+SAIS_COUNTERS = ("l_rounds", "s_rounds", "substring_rounds")
 PROBE_SHAPE = (1 << 15, 128)  # scripts/round3_study.py section_bw: 2^22 int32
 # torch.profiler scopes of ops/sais.py::_derive_sa and
 # ops/prefix_doubling.py
@@ -396,6 +427,30 @@ def sha(a: np.ndarray) -> str:
         np.ascontiguousarray(a, dtype=np.uint32).tobytes()).hexdigest()
 
 
+def sais_build(sais, SuffixTable, raw: bytes):
+    """``SuffixTable.new(raw, engine="sais", collect_stats=True)`` and the
+    SA-IS pipeline's round counters, which the stats schema leaves out as
+    the JAX package's does: a wrapper keeps the stats dict that
+    utils/metrics.py hands the pipeline."""
+    fn = sais.suffix_array_sais_recursive
+    seen: dict = {}
+
+    def wrapper(*a, stats=None, **k):
+        out = fn(*a, stats=stats, **k)
+        seen.update(stats or {})
+        return out
+
+    sais.suffix_array_sais_recursive = wrapper
+    try:
+        st = SuffixTable.new(raw, engine="sais", collect_stats=True)
+    finally:
+        sais.suffix_array_sais_recursive = fn
+    if not seen:
+        raise AssertionError("the SA-IS build did not go through "
+                             "ops/sais.py::suffix_array_sais_recursive")
+    return st, {k: seen.get(k, 0) for k in SAIS_COUNTERS}
+
+
 def check_golden_device(SuffixTable) -> None:
     """Phase 4, golden_device: the default build of both fixtures against
     the golden SA and LCP digests and the JAX route labels."""
@@ -418,71 +473,79 @@ def check_golden_device(SuffixTable) -> None:
              **st.build_stats)
 
 
-def pair_lcps(t: np.ndarray, table: np.ndarray,
-              ranks: np.ndarray) -> np.ndarray:
-    """Byte-wise common prefix of the suffixes at ranks r-1 and r, for
-    each r of ``ranks``, on the host."""
+def check_pair_lcps(raw: bytes, table: np.ndarray, ranks: np.ndarray,
+                    lcp: np.ndarray) -> None:
+    """For each r of ``ranks``, the suffixes at ranks r-1 and r share
+    exactly ``lcp[r]`` leading bytes: the first lcp[r] are equal (libc
+    ``memcmp`` in place: a near-repeated text's million-byte LCPs check in
+    well under a millisecond each) and the next byte differs or one suffix
+    ends."""
+    t = np.frombuffer(raw, np.uint8)
     n = t.size
-    a = table[ranks - 1].astype(np.int64)
-    b = table[ranks].astype(np.int64)
-    want = np.zeros(ranks.size, np.int64)
-    active = np.ones(ranks.size, bool)
-    off = 0
-    while active.any():
-        idx = np.flatnonzero(active)
-        ia, ib = a[idx] + off, b[idx] + off
-        eq = ((ia < n) & (ib < n)
-              & (t[np.minimum(ia, n - 1)] == t[np.minimum(ib, n - 1)]))
-        want[idx[eq]] += 1
-        active[idx[~eq]] = False
-        off += 1
-    return want
+    memcmp = ctypes.CDLL(None).memcmp
+    memcmp.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t)
+    memcmp.restype = ctypes.c_int
+    base = t.ctypes.data
+    for r in ranks.tolist():
+        a, b, m = int(table[r - 1]), int(table[r]), int(lcp[r])
+        if (a + m > n or b + m > n or memcmp(base + a, base + b, m) != 0
+                or (a + m < n and b + m < n and t[a + m] == t[b + m])):
+            raise AssertionError(f"LCP of ranks {r - 1}, {r} is not {m}")
 
 
 def check_lcp_sample(raw: bytes, table: np.ndarray, lcp: np.ndarray) -> int:
-    """LCP of LCP_SAMPLES random adjacent rank pairs against their
-    byte-wise common prefix on the host; returns the max LCP."""
-    t = np.frombuffer(raw, np.uint8)
-    n = t.size
+    """LCP of LCP_SAMPLES random adjacent rank pairs against the bytes on
+    the host; returns the max LCP."""
+    n = len(raw)
     if lcp.shape != (n,) or lcp.dtype != np.uint32 or lcp[0] != 0:
         raise AssertionError("LCP array has the wrong shape, type or head")
     ranks = np.random.default_rng(SEED + 3).integers(1, n, size=LCP_SAMPLES)
-    if not np.array_equal(lcp[ranks].astype(np.int64),
-                          pair_lcps(t, table, ranks)):
-        raise AssertionError("sampled LCPs differ from the byte-wise "
-                             "common prefix")
+    check_pair_lcps(raw, table, ranks, lcp)
     return int(lcp.max())
 
 
-def check_lcp_64m(torch, lcp_ops, st, raw: bytes) -> None:
+def counted_lcp(lcp_ops, native, st, trace: list | None = None):
+    """(lcp, seconds, calls): ``st.lcp_lens()`` with wrappers counting the
+    bulk ladder (its per-stage trace into ``trace``), the Kasai route, and
+    which Kasai answered it: the native library or the numpy loop."""
+    calls = {"bulk": 0, "kasai": 0, "native_kasai": 0, "numpy_kasai": 0}
+    saved = {(lcp_ops, "_lcp_bulk"): lcp_ops._lcp_bulk,
+             (lcp_ops, "_kasai_route"): lcp_ops._kasai_route,
+             (lcp_ops, "kasai_host"): lcp_ops.kasai_host,
+             (native, "kasai"): native.kasai}
+
+    def counted(key, fn, **extra):
+        def wrapper(*a, **k):
+            calls[key] += 1
+            return fn(*a, **extra, **k)
+        return wrapper
+
+    lcp_ops._lcp_bulk = counted("bulk", lcp_ops._lcp_bulk, trace=trace)
+    lcp_ops._kasai_route = counted("kasai", lcp_ops._kasai_route)
+    lcp_ops.kasai_host = counted("numpy_kasai", lcp_ops.kasai_host)
+    native.kasai = counted("native_kasai", native.kasai)
+    try:
+        t0 = time.perf_counter()
+        lcp = st.lcp_lens()
+        lcp_s = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    return lcp, lcp_s, calls
+
+
+def check_lcp_64m(torch, lcp_ops, native, st, raw: bytes) -> None:
     """lcp_64m: ``lcp_lens()`` through the bulk ladder (wrappers count the
     ladder and Kasai calls and take the ladder's per-stage trace); the
     census in (2048, n/64]; sampled pairs and every survivor pair against
     the bytes."""
     t_phase = time.perf_counter()
-    calls = {"bulk": 0, "kasai": 0}
     trace: list = []
-    bulk, kasai = lcp_ops._lcp_bulk, lcp_ops._kasai_route
-
-    def counted_bulk(*a, **k):
-        calls["bulk"] += 1
-        return bulk(*a, trace=trace, **k)
-
-    def counted_kasai(*a, **k):
-        calls["kasai"] += 1
-        return kasai(*a, **k)
-
-    lcp_ops._lcp_bulk, lcp_ops._kasai_route = counted_bulk, counted_kasai
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        lcp = st.lcp_lens()
-        lcp_s = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-    finally:
-        lcp_ops._lcp_bulk, lcp_ops._kasai_route = bulk, kasai
+    torch.cuda.reset_peak_memory_stats()
+    lcp, lcp_s, calls = counted_lcp(lcp_ops, native, st, trace)
+    peak = torch.cuda.max_memory_allocated()
     n = len(raw)
-    if calls != {"bulk": 1, "kasai": 0}:
+    if calls["bulk"] != 1 or calls["kasai"] != 0:
         raise AssertionError(f"lcp_64m took {calls}; expected the bulk "
                              "ladder once and no Kasai")
     census = trace[0]["survivors"]
@@ -495,10 +558,7 @@ def check_lcp_64m(torch, lcp_ops, st, raw: bytes) -> None:
     if deep.size != census:
         raise AssertionError(f"{deep.size} pairs with LCP >= 18, census "
                              f"{census}")
-    if not np.array_equal(lcp[deep].astype(np.int64),
-                          pair_lcps(np.frombuffer(raw, np.uint8), st.table(),
-                                    deep)):
-        raise AssertionError("a survivor pair's LCP differs from the bytes")
+    check_pair_lcps(raw, st.table(), deep, lcp)
     emit("lcp_64m", lcp_s=lcp_s, census=census,
          survivor_pairs_checked=int(deep.size), sampled_pairs=LCP_SAMPLES,
          max_lcp=max_lcp, check_s=time.perf_counter() - t0,
@@ -789,6 +849,241 @@ def check_lean(torch, search2, st) -> None:
          phase_s=time.perf_counter() - t_phase)
 
 
+def check_native(native, SuffixTable, card: str) -> None:
+    """native: build the C++ library and the CPython extension from
+    ``suffix_torch/native/csrc`` (both must load: no silent fallback), then
+    the golden SA and LCP digests of both fixtures through
+    ``engine="native"`` and ``lcp_lens("native")``."""
+    lib, ext = native.library_path(), native.extension_path()
+    fresh = {"library": not lib.exists(), "extension": not ext.exists()}
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"the native library did not build: "
+                             f"{native._load_error}")
+    lib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if native._load_fastpath() is None:
+        raise AssertionError(f"the _fastpath extension did not load: "
+                             f"{native.fastpath_error}")
+    ext_s = time.perf_counter() - t0
+    build_dir = ROOT / "suffix_torch" / "_build"
+    if lib.parent != build_dir or ext.parent != build_dir:
+        raise AssertionError(f"native builds outside {build_dir}")
+    fixtures = []
+    for name, (sa_digest, lcp_digest, _) in GOLDEN_DEVICE.items():
+        data = (ROOT / "tests" / "fixtures" / f"{name}.fasta").read_bytes()
+        t0 = time.perf_counter()
+        st = SuffixTable.new(data, engine="native")
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lcp = st.lcp_lens("native")
+        lcp_s = time.perf_counter() - t0
+        if sha(st.table()) != sa_digest or sha(lcp) != lcp_digest:
+            raise AssertionError(f"{name}: the native SA or LCP differs from "
+                                 "the golden digest")
+        fixtures.append({"fixture": name, "build_s": build_s, "lcp_s": lcp_s})
+    emit("native", card=card, library=lib.name, extension=ext.name,
+         built_in_this_run=fresh, library_build_s=lib_s,
+         extension_build_s=ext_s, flags=list(native.CXX_FLAGS),
+         extension_loaded=True, fixtures=fixtures)
+
+
+def check_small_builds(native, SuffixTable, resolve_device,
+                       card: str) -> None:
+    """build_small_native: mean µs of one small native build, over
+    SMALL_BUILDS random texts of each length in SMALL_BUILD_LENS, through
+    the fast path (``new(engine="native")``, which skips ``__init__``) and
+    through ``__init__`` (``SuffixTable(t, native.sais(t))``), beside the C
+    SA-IS alone and ``resolve_device(None)`` alone; the median of
+    SMALL_BUILD_REPS rounds, the four in turn; the two tables equal."""
+    rng = np.random.default_rng(SEED + 11)
+    sais_c = native._load_fastpath().sais
+
+    def fast(texts):
+        for t in texts:
+            SuffixTable.new(t, engine="native")
+
+    def plain(texts):
+        for t in texts:
+            SuffixTable(t, native.sais(t))
+
+    def c_only(texts):
+        for t in texts:
+            sais_c(t)
+
+    def resolve(texts):
+        for _ in texts:
+            resolve_device(None)
+
+    cases = {"fast_path": fast, "init": plain, "c_sais": c_only,
+             "resolve_device": resolve}
+    rows = []
+    for m in SMALL_BUILD_LENS:
+        texts = [bytes(r) for r in rng.integers(97, 101, size=(SMALL_BUILDS,
+                                                               m),
+                                                dtype=np.uint8)]
+        for t in texts[:64]:
+            if SuffixTable.new(t, engine="native") != SuffixTable(
+                    t, native.sais(t)):
+                raise AssertionError(f"fast-path table differs at {m} bytes")
+        us = {k: [] for k in cases}
+        for _ in range(SMALL_BUILD_REPS):
+            for k, fn in cases.items():
+                t0 = time.perf_counter()
+                fn(texts)
+                us[k].append((time.perf_counter() - t0) / len(texts) * 1e6)
+        rows.append({"len": m, **{f"{k}_us": statistics.median(v)
+                                  for k, v in us.items()}})
+    emit("build_small_native", card=card, builds=SMALL_BUILDS,
+         reps=SMALL_BUILD_REPS, rows=rows)
+
+
+def check_lcp_kasai(lcp_ops, native, st, raw: bytes, phase: str,
+                    card: str) -> None:
+    """lcp_4m_nearrep, lcp_128m_text: ``lcp_lens()`` on a survivor-dense
+    table: the sampler sends it to Kasai (wrappers: Kasai once, by the
+    native library; the bulk ladder never), 65,536 sampled pairs checked
+    against the bytes."""
+    lcp, lcp_s, calls = counted_lcp(lcp_ops, native, st)
+    if calls != {"bulk": 0, "kasai": 1, "native_kasai": 1, "numpy_kasai": 0}:
+        raise AssertionError(f"{phase} took {calls}; expected the native "
+                             "Kasai once and no bulk ladder")
+    t0 = time.perf_counter()
+    max_lcp = check_lcp_sample(raw, st.table(), lcp)
+    emit(phase, card=card, n=len(raw), lcp_s=lcp_s, calls=calls,
+         route="native_kasai", sampled_pairs=LCP_SAMPLES, max_lcp=max_lcp,
+         check_s=time.perf_counter() - t0)
+
+
+def hybrid_queries(raw: bytes) -> list[bytes]:
+    """HYBRID_SINGLES queries over the 4 MiB DNA text, shuffled: drawn
+    14-byte patterns, absent 14-byte ones (letters the text lacks), drawn
+    64-byte patterns and the empty query."""
+    n = len(raw)
+    rng = np.random.default_rng(SEED + 7)
+    k = HYBRID_SINGLES // 4
+    qs = [raw[s:s + QLEN] for s in rng.integers(0, n - QLEN, size=2 * k)]
+    qs += [bytes(r) for r in rng.integers(101, 123, size=(k, QLEN),
+                                          dtype=np.uint8)]
+    qs += [raw[s:s + 64] for s in rng.integers(0, n - 64, size=k - 1)]
+    qs.append(b"")
+    return [qs[i] for i in rng.permutation(len(qs))]
+
+
+def check_hybrid(native, search2, st, raw: bytes, card: str) -> None:
+    """queries_hybrid: the four single-query methods of a CUDA table under
+    ``query_route="auto"`` (the host route, the extension's methods bound
+    onto the table) and ``"device"``, every answer equal; a batch of
+    HOST_QUERY_MAX on the host and one more on the device, by wrappers;
+    the median microseconds a call of each."""
+    t_phase = time.perf_counter()
+    queries = hybrid_queries(raw)
+    ops = ("positions", "contains", "count", "any_position")
+
+    def run(qs):
+        out, us = {}, {}
+        for op in ops:
+            res, times = [], []
+            for q in qs:
+                t0 = time.perf_counter_ns()
+                r = getattr(st, op)(q)
+                times.append(time.perf_counter_ns() - t0)
+                res.append(r)
+            out[op], us[op] = res, statistics.median(times) / 1e3
+        return out, us
+
+    st.query_route = "auto"
+    host, host_us = run(queries)
+    bound = sorted(op for op in ops if op in st.__dict__)
+    if bound != sorted(ops) or st._host_handle is None:
+        raise AssertionError(f"the host route did not bind the extension's "
+                             f"methods: {bound}")
+    st.query_route = "device"
+    dev_qs = queries[:HYBRID_DEVICE_SINGLES]
+    dev, dev_us = run(dev_qs)
+    for op in ops:
+        for q, a, b in zip(dev_qs, host[op], dev[op]):
+            same = (np.array_equal(a, b) and a.dtype == b.dtype
+                    if op == "positions" else a == b and type(a) is type(b))
+            if not same:
+                raise AssertionError(f"{op}({q!r}): host {a!r} != device "
+                                     f"{b!r}")
+    for q, c, pos in zip(queries, host["count"], host["positions"]):
+        if c != len(pos):
+            raise AssertionError(f"count/positions mismatch for {q!r}")
+    checked = 0
+    for q, c in list(zip(queries, host["count"]))[:256]:
+        if c != (overlapping_count(raw, q) if q else 0):
+            raise AssertionError(f"count({q!r}) = {c} on the host route")
+        checked += 1
+    # Batches: HOST_QUERY_MAX on the host, one more on the device.
+    st.query_route = "auto"
+    calls = {"host_batch": 0, "device_batch": 0}
+    saved = (native.bounds_batch, search2.bounds_batch_merge,
+             search2.bounds_batch_merge_deep)
+
+    def counted(key, fn):
+        def wrapper(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    native.bounds_batch = counted("host_batch", saved[0])
+    search2.bounds_batch_merge = counted("device_batch", saved[1])
+    search2.bounds_batch_merge_deep = counted("device_batch", saved[2])
+    try:
+        m = st.HOST_QUERY_MAX
+        small = st.count_batch(queries[:m])
+        after_small = dict(calls)
+        big = st.count_batch(queries[:m + 1])
+    finally:
+        (native.bounds_batch, search2.bounds_batch_merge,
+         search2.bounds_batch_merge_deep) = saved
+    if (after_small != {"host_batch": 1, "device_batch": 0}
+            or calls != {"host_batch": 1, "device_batch": 1}):
+        raise AssertionError(f"batch routing: {after_small} after {m}, "
+                             f"{calls} after {m + 1}; expected the host "
+                             "then the device")
+    if not (np.array_equal(small, host["count"][:m])
+            and np.array_equal(big, host["count"][:m + 1])):
+        raise AssertionError("batch counts differ from the single queries")
+    handle = st._host_handle
+    drawn = raw[1000:1000 + QLEN]  # a present 14-byte pattern
+    emit("queries_hybrid", card=card, n=len(raw), host_singles=len(queries),
+         device_singles=len(dev_qs), route_auto="host_ext",
+         median_us={"host": host_us, "device": dev_us},
+         c_only_ns={"bounds_drawn14": handle.bench_c_only(drawn),
+                    "contains_drawn14": handle.bench_c_only(
+                        drawn, op="contains")},
+         batch_routing={m: "host", m + 1: "device"},
+         sampled_count_checks=checked, phase_s=time.perf_counter() - t_phase)
+
+
+def check_verify_device(SuffixTable, tables, card: str) -> None:
+    """verify_device: ``verify(device=True)`` against the host certificate
+    on each (name, raw, table) of ``tables`` and on the first one with two
+    adjacent entries swapped (both must say False); seconds of each."""
+    rows = []
+    name0, raw0, tab0 = tables[0]
+    bad = tab0.copy()
+    bad[[1000, 1001]] = bad[[1001, 1000]]
+    for name, raw, tab, want in [(n, r, t, True) for n, r, t in tables] + [
+            (f"{name0}_swapped", raw0, bad, False)]:
+        st = SuffixTable.from_parts(raw, tab)
+        t0 = time.perf_counter()
+        dev = st.verify(device=True)
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = st.verify()
+        host_s = time.perf_counter() - t0
+        if dev is not want or host is not want:
+            raise AssertionError(f"{name}: device {dev}, host {host}; "
+                                 f"expected {want}")
+        rows.append({"table": name, "n": len(raw), "result": want,
+                     "device_s": dev_s, "host_s": host_s})
+    emit("verify_device", card=card, rows=rows)
+
+
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
@@ -810,7 +1105,8 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from suffix_torch import SuffixTable
+    from suffix_torch import SuffixTable, native
+    from suffix_torch.device import resolve_device
     from suffix_torch.ops import kernels, probes, sais, search2
     from suffix_torch.ops import lcp as lcp_ops
     from suffix_torch.utils import textgen
@@ -842,15 +1138,15 @@ def main() -> int:
         libs["probes"].with_suffix(".log").read_text()))
 
     fixture = FIXTURE.read_bytes()
-    st100 = SuffixTable.new(fixture, engine="sais", collect_stats=True)
+    st100, rounds = sais_build(sais, SuffixTable, fixture)
     if sha(st100.table()) != GOLDEN_SA_100K:
         raise AssertionError("100 KB fixture SA differs from the golden digest")
-    emit("golden", n=len(fixture), **st100.build_stats)
+    emit("golden", n=len(fixture), **st100.build_stats, **rounds)
     check_golden_device(SuffixTable)
 
     # ---- the SA-IS path: counters from 0, build + queries, counters read -
     kernels.byte_histogram.launches = 0
-    st = SuffixTable.new(raw, engine="sais", collect_stats=True)
+    st, rounds = sais_build(sais, SuffixTable, raw)
     build_launches = kernels.byte_histogram.launches
     if build_launches < 2:
         raise AssertionError(f"byte_histogram launched {build_launches} "
@@ -859,7 +1155,7 @@ def main() -> int:
     if not verify_suffix_array(raw, st.table()):
         raise AssertionError("4 MiB table fails the suffix-array certificate")
     emit("build_4m", certificate_s=time.perf_counter() - t0,
-         histogram_launches=build_launches, **st.build_stats)
+         histogram_launches=build_launches, **st.build_stats, **rounds)
     drawn14 = check_queries(st, raw, rng)
     launches = kernels.byte_histogram.launches
 
@@ -885,9 +1181,10 @@ def main() -> int:
         0, 4, size=N_TEXT_64M, dtype=np.uint8) + 97).tobytes()
     st64 = build_device(torch, SuffixTable, verify_suffix_array, raw64,
                         "build_64m_device")
-    check_lcp_64m(torch, lcp_ops, st64, raw64)
+    check_lcp_64m(torch, lcp_ops, native, st64, raw64)
     profile(torch, "lcp_64m", st64.lcp_lens, LCP_SCOPES)
-    del st64, raw64
+    tab64 = st64.table()  # for verify_device
+    del st64
 
     # The other routes of the default build at 4 MiB: rounds at full
     # width, and the two-phase engine.
@@ -898,8 +1195,8 @@ def main() -> int:
     build_device(torch, SuffixTable, verify_suffix_array, text,
                  "build_4m_device_text", LABEL_TEXT_REPEATS)
     nearrep = nearrep_text()
-    build_device(torch, SuffixTable, verify_suffix_array, nearrep,
-                 "build_4m_device_nearrep", LABEL_NEARREP)
+    st_near = build_device(torch, SuffixTable, verify_suffix_array, nearrep,
+                           "build_4m_device_nearrep", LABEL_NEARREP)
 
     profile(torch, "build_4m_device", lambda: SuffixTable.new(raw),
             DOUBLING_SCOPES)
@@ -910,7 +1207,6 @@ def main() -> int:
     profile(torch, "build_4m_device_nearrep",
             lambda: SuffixTable.new(nearrep), DOUBLING_SCOPES)
     profile(torch, "lcp_4m", st_d.lcp_lens, ())
-    del st_d
 
     # ---- 128 MiB text: build, deep keyless queries, lean build ----------
     t0 = time.perf_counter()
@@ -920,7 +1216,31 @@ def main() -> int:
                          generate_s=time.perf_counter() - t0)
     check_deep_queries(torch, search2, st128, text128)
     check_lean(torch, search2, st128)
+
+    # ---- the native engine, the Kasai LCPs, the hybrid route, verify ---
+    check_native(native, SuffixTable, card)
+    check_small_builds(native, SuffixTable, resolve_device, card)
+    t0 = time.perf_counter()
+    st_n = SuffixTable.new(raw, engine="auto", collect_stats=True)
+    build_s = time.perf_counter() - t0
+    if st_n.build_stats["engine"] != "native-sais":
+        raise AssertionError(f"engine='auto' at 4 MiB took "
+                             f"{st_n.build_stats['engine']!r}")
+    if not np.array_equal(st_n.table(), st_d.table()):
+        raise AssertionError("the native 4 MiB table differs from the "
+                             "default build's")
+    emit("build_4m_native", card=card, build_s=build_s,
+         mb_per_s=len(raw) / 1e6 / build_s, **st_n.build_stats)
+    del st_n
+    check_lcp_kasai(lcp_ops, native, st_near, nearrep, "lcp_4m_nearrep",
+                    card)
+    del st_near
+    check_lcp_kasai(lcp_ops, native, st128, text128, "lcp_128m_text", card)
     del st128, text128
+    check_hybrid(native, search2, st_d, raw, card)
+    check_verify_device(SuffixTable, [("dna_4m", raw, st_d.table()),
+                                      ("dna_64m", raw64, tab64)], card)
+    del st_d, raw64, tab64
 
     print(json.dumps({"kernels": [
         kernel_entry("byte_histogram", "suffix_torch/csrc/histogram.cu",

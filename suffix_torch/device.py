@@ -26,6 +26,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def dispatch_is_expensive(device: torch.device) -> bool:
+    """True when work on ``device`` costs a device round trip (CUDA:
+    launches, copies, a synchronising readback) rather than a host call.
+
+    Counterpart of ``suffix_tpu/utils/platform.py::dispatch_is_expensive``,
+    decided per table from its own device instead of once per process: the
+    hybrid routing of ``SuffixTable`` answers single queries and small
+    batches on the host when this is true.
+    """
+    return device.type == "cuda"
+
+
 def sync(device: torch.device) -> None:
     """Wait for all queued work on ``device`` (no-op on the CPU)."""
     if device.type == "cuda":

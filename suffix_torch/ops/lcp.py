@@ -20,9 +20,9 @@ What changes from JAX to PyTorch:
   un-permute is a scatter, where JAX key-sorts both ways.
 - ``cumprod(eq).sum(axis=1)`` (equal leading bytes of a window) is a
   first-mismatch ``argmax``.
-- The native C++ Kasai is not ported, so the Kasai route is the host
-  numpy ``kasai_host`` (JAX's own route when its native library is
-  missing).
+- The Kasai route is the native C++ Kasai (``suffix_torch/native``) when
+  its library builds, else the numpy ``kasai_host``, as in the JAX
+  package.
 - The bulk stages run under ``record_function`` scopes ``L1_base_compact``,
   ``L2_packed_stage``, ``L3_rows_stage`` and ``L4_finish``.
 """
@@ -35,6 +35,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from suffix_torch import native
 from suffix_torch.device import resolve_device
 from suffix_torch.ops import search2
 from suffix_torch.ops.padding import PAD, bucket_size
@@ -357,8 +358,10 @@ def _lcp_bulk(text_dev: torch.Tensor, n: int, tab_dev: torch.Tensor, pk,
 
 
 def _kasai_route(text_bytes: np.ndarray, sa: np.ndarray) -> np.ndarray:
-    """Linear-time host route for the auto fallback (numpy; the native
-    C++ Kasai is not ported, ROADMAP.md Queue 1 item 4)."""
+    """Linear-time host route for the auto fallback (native, else
+    numpy)."""
+    if native.available():
+        return native.kasai(text_bytes, sa)
     return kasai_host(text_bytes, sa)
 
 
@@ -440,7 +443,8 @@ def lcp_from_sa(text_bytes: np.ndarray, sa: np.ndarray, block: int = 128,
 
 def kasai_host(text_bytes: np.ndarray, sa: np.ndarray) -> np.ndarray:
     """Linear-time Kasai LCP on the host (numpy scalar loop), over raw
-    bytes: the test oracle and the auto route's fallback."""
+    bytes: the test oracle and the auto route's fallback without the
+    native library."""
     t = np.asarray(text_bytes, dtype=np.uint8)
     n = int(sa.shape[0])
     lcp = np.zeros(n, dtype=np.uint32)

@@ -15,23 +15,29 @@ Port of ``suffix_tpu/table.py`` with the same behavioural contract
 The table carries its torch ``device``; ``device=None`` means CUDA and
 raises where there is none. Engines: ``"device"`` (the default, prefix
 doubling, ops/prefix_doubling.py), ``"sais"`` (the recursive SA-IS
-pipeline, ops/sais.py), ``"auto"`` and ``"naive"``. Every query goes
-through the device merge-join engine (ops/search2.py) on the index layout
-the JAX package picks for the size: flat keys up to FLAT_KEYS_MAX_PAD, the
-deep keyless index up to search2.DEEP_EXT_MAX_PAD, the lean keyless build
-past it; ``lcp_lens`` through ops/lcp.py.
+pipeline, ops/sais.py), ``"native"`` (C++ SA-IS on the host, native/) and
+``"auto"`` (native up to AUTO_NATIVE_MAX bytes, else device).
+
+Queries take one of two routes (``query_route``). The device route is the
+merge-join engine (ops/search2.py) on the index layout the JAX package
+picks for the size: flat keys up to FLAT_KEYS_MAX_PAD, the deep keyless
+index up to search2.DEEP_EXT_MAX_PAD, the lean keyless build past it. The
+host route is the native binary search; under ``"auto"`` a CUDA table
+answers single queries and batches of at most HOST_QUERY_MAX there, where
+a device round trip would cost far more than the search. ``lcp_lens`` goes
+through ops/lcp.py.
 """
 
 from __future__ import annotations
 
 import threading
-import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from suffix_torch.device import resolve_device
+from suffix_torch import native
+from suffix_torch.device import dispatch_is_expensive, resolve_device
 from suffix_torch.ops import lcp as lcp_ops
 from suffix_torch.ops import prefix_doubling
 from suffix_torch.ops import sais
@@ -42,8 +48,33 @@ from suffix_torch.ops.search import pack_queries
 
 MAX_TEXT_LEN = 0xFFFFFFFF  # u32 offsets, same cap as the reference
 
-_NATIVE_UNPORTED = ("the native C++ engine is not ported to suffix_torch "
-                    "yet; see ROADMAP.md Queue 1 item 4")
+# Guards creation of an instance's _init_lock when the instance came
+# through the small-build fast path (two threads racing __getattr__ must
+# agree on ONE lock object).
+_LOCK_CREATE = threading.Lock()
+
+# Resolved once on the first small build: the raw C sais entry (the
+# extension's METH_O function when built, else the Python wrapper), or
+# False when no native library exists. Re-resolving per build would cost
+# more than the C build of a short text.
+_SMALL_SAIS = None
+
+
+def _resolve_small_sais():
+    global _SMALL_SAIS
+    if not native.available():
+        _SMALL_SAIS = False
+        return False
+    fp = native._load_fastpath()
+    _SMALL_SAIS = fp.sais if fp is not None else native.sais
+    return _SMALL_SAIS
+
+
+# engine="auto": texts at or below this build on the host with the native
+# SA-IS, larger ones on the device. The JAX package's value, measured on a
+# TPU host (the parity rule of ROADMAP.md); the port's own crossover waits
+# for the port bench.
+AUTO_NATIVE_MAX = 1 << 22
 
 
 def _as_bytes(text) -> tuple[bytes, bool]:
@@ -56,10 +87,6 @@ def _as_bytes(text) -> tuple[bytes, bool]:
     if arr.dtype != np.uint8:
         raise TypeError("array texts must be uint8")
     return arr.tobytes(), False
-
-
-def _device_name(dev: torch.device) -> str:
-    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
 class SuffixTable:
@@ -96,8 +123,57 @@ class SuffixTable:
         self._pk = self._pk_fence = self._pk_block = None
         self._ext = None  # 12-word (fences, blocks), on the first long query
         self._ext_block = None  # the deep keyless index's ext words
+        self._host_handle = None  # native single-query handle (host route)
         self._init_lock = threading.RLock()  # guards the lazy device state
+        # Per-instance routing (the class attribute is the default):
+        # assigning one table's route must not re-route every table.
+        self._query_route = type(self)._QUERY_ROUTE_DEFAULT
+        # utils/metrics.py stats, from new(..., collect_stats=True) or a
+        # checkpoint saved with them.
         self.build_stats = None
+
+    # Lazily materialized state for fast-path instances (_new_small skips
+    # __init__; __getattr__ below fills these on first touch).
+    _LAZY_NONE = frozenset((
+        "_dev_text", "_dev_table", "_pk", "_pk_fence", "_pk_block", "_ext",
+        "_ext_block", "_host_handle", "build_stats",
+    ))
+
+    def __getattr__(self, name):
+        # Only called for attributes missing from the instance: no cost
+        # for fully initialized tables.
+        if name in type(self)._LAZY_NONE:
+            self.__dict__[name] = None
+            return None
+        if name == "_bytes":
+            v = np.frombuffer(self._raw, dtype=np.uint8)
+            self.__dict__[name] = v
+            return v
+        if name == "_query_route":
+            v = type(self)._QUERY_ROUTE_DEFAULT
+            self.__dict__[name] = v
+            return v
+        if name == "_init_lock":
+            with _LOCK_CREATE:
+                if "_init_lock" not in self.__dict__:
+                    self.__dict__["_init_lock"] = threading.RLock()
+            return self.__dict__["_init_lock"]
+        raise AttributeError(name)
+
+    @classmethod
+    def _new_small(cls, raw: bytes, table: np.ndarray,
+                   device: torch.device) -> "SuffixTable":
+        """Minimal construction for the host small-build path: four fields
+        (the device among them), the rest lazy (``__getattr__``), since
+        the full ``__init__`` costs more than the C build of a short
+        text."""
+        st = cls.__new__(cls)
+        d = st.__dict__
+        d["_raw"] = raw
+        d["_table"] = table
+        d["_was_str"] = False
+        d["device"] = device
+        return st
 
     # ----------------------------------------------------------------- build
 
@@ -105,7 +181,8 @@ class SuffixTable:
     def new(cls, text, engine: str = "device", padding: str = "pow2",
             index_dtype: str = "u32", collect_stats: bool = False,
             device=None) -> "SuffixTable":
-        """Build the suffix table on ``device`` (``None`` = CUDA).
+        """Build the suffix table; the table lives on ``device`` (``None``
+        = CUDA).
 
         Engines (all give the same, unique suffix array):
 
@@ -114,55 +191,55 @@ class SuffixTable:
           two-phase, ladder); ``padding`` and ``index_dtype``
           ("u32"/"u64"/"auto") apply to it;
         - ``"sais"``: the SA-IS pipeline on the device, ops/sais.py;
-        - ``"auto"``: the JAX package takes its native engine for small
-          texts when that library is present; the native engine is not
-          ported, so ``"auto"`` is ``"device"`` here;
-        - ``"naive"``: the host oracle.
+        - ``"native"``: linear-time C++ SA-IS on the host CPU (native/);
+        - ``"auto"``: native for texts of at most AUTO_NATIVE_MAX bytes
+          when the native library builds, device otherwise.
 
-        ``"native"`` raises ``NotImplementedError``. ``collect_stats=True``
-        attaches a dict as ``build_stats``: for ``"device"`` the keys of
-        ``suffix_tpu/utils/metrics.py::build_stats`` (route label, family,
-        h0, sigma, rounds, h_final, tie trajectory or the two-phase switch
-        state); for ``"sais"`` the recursion depth and rounds per phase.
+        ``collect_stats=True`` builds through utils/metrics.py and attaches
+        its stats dict as ``build_stats`` (route label, family, rounds,
+        bytes/s, ...).
         """
+        if (type(text) is bytes and not collect_stats
+                and index_dtype == "u32"
+                and (engine == "native"
+                     or (engine == "auto"
+                         and len(text) <= AUTO_NATIVE_MAX))):
+            # Small-build fast path: one C call and a four-field instance.
+            fn = _SMALL_SAIS
+            if fn is None:
+                fn = _resolve_small_sais()
+            if fn:
+                if len(text) > MAX_TEXT_LEN:
+                    raise ValueError("text is too large (max 2^32 - 1 bytes)")
+                return cls._new_small(text, fn(text), resolve_device(device))
         dev = resolve_device(device)
-        if engine == "native":
-            raise NotImplementedError(f"engine='native': {_NATIVE_UNPORTED}")
+        raw, was_str = _as_bytes(text)
         if engine == "auto":
             engine = "device"
-        if engine not in ("device", "sais", "naive"):
+            if len(raw) <= AUTO_NATIVE_MAX and native.available():
+                engine = "native"
+        if engine not in ("device", "sais", "native"):
             raise ValueError(f"unknown engine: {engine!r}")
-        raw, was_str = _as_bytes(text)
         if len(raw) > MAX_TEXT_LEN:
             raise ValueError("text is too large (max 2^32 - 1 bytes)")
-        n = len(raw)
-        stats = ({"schema": 1, "n_bytes": n, "index_dtype": index_dtype,
-                  "device": _device_name(dev)} if collect_stats else None)
-        counters: dict = {}
-        t0 = time.perf_counter()
+        if collect_stats:
+            from suffix_torch.utils.metrics import build_stats
+
+            table, stats = build_stats(raw, engine=engine,
+                                       index_dtype=index_dtype,
+                                       padding=padding, device=dev)
+            st = cls(raw, table.astype(np.uint32), _was_str=was_str,
+                     device=dev)
+            st.build_stats = stats
+            return st
         if engine == "device":
             table = prefix_doubling.suffix_array_bytes(
-                raw, padding=padding, index_dtype=index_dtype, device=dev,
-                stats=stats)
+                raw, padding=padding, index_dtype=index_dtype, device=dev)
         elif engine == "sais":
-            table = sais.suffix_array_sais_recursive(raw, stats=counters,
-                                                     device=dev)
+            table = sais.suffix_array_sais_recursive(raw, device=dev)
         else:
-            table = naive_table(raw)
-        dt = time.perf_counter() - t0
-        st = cls(raw, table, _was_str=was_str, device=dev)
-        if collect_stats and engine != "device":
-            stats.update(
-                n_pad=bucket_size(max(n, 1)), index_dtype="u32",
-                engine="sais-device" if engine == "sais" else "naive",
-                engine_family=engine, elapsed_s=round(dt, 6),
-                bytes_per_s=round(n / max(dt, 1e-12), 1))
-            if engine == "sais":
-                stats["recursion_depth"] = counters.get("depth", 0)
-                for key in ("l_rounds", "s_rounds", "substring_rounds"):
-                    stats[key] = counters.get(key, 0)
-        st.build_stats = stats
-        return st
+            table = native.sais(raw)
+        return cls(raw, table, _was_str=was_str, device=dev)
 
     @classmethod
     def new_naive(cls, text, device=None) -> "SuffixTable":
@@ -221,19 +298,19 @@ class SuffixTable:
         """LCP array (uint32), reference definition src/table.rs:348-361.
 
         ``method``: "auto" (the keyed device refine or the bulk ladder by
-        survivor count, the host Kasai on survivor-dense corpora or LCPs
-        past the ladder's budget, ops/lcp.py), "device" (the
-        unbounded keyed refine) or "kasai" (host numpy). "native" raises:
-        that engine is not ported. All give the same array."""
+        survivor count, the native Kasai on survivor-dense corpora or LCPs
+        past the ladder's budget, ops/lcp.py), "device" (the unbounded
+        keyed refine), "native" (C++ Kasai on the host, linear time) or
+        "kasai" (host numpy oracle). All give the same array."""
         if method in ("auto", "device"):
             # Reuse the query index's packed keys when already built.
             pk = self._pk if self._dev_text is not None else None
             return lcp_ops.lcp_from_sa(self._bytes, self._table, pk=pk,
                                        method=method, device=self.device)
+        if method == "native":
+            return native.kasai(self._raw, self._table)
         if method == "kasai":
             return lcp_ops.kasai_host(self._bytes, self._table)
-        if method == "native":
-            raise NotImplementedError(f"method='native': {_NATIVE_UNPORTED}")
         raise ValueError(f"unknown LCP method: {method!r}")
 
     # ----------------------------------------------------------------- query
@@ -283,13 +360,63 @@ class SuffixTable:
                 self._ext = (fence, block)
         return self._ext
 
+    # Hybrid serving: on CUDA a device query is launches, copies and a
+    # synchronising readback, so single queries and small batches answer
+    # faster on the host (the native binary search, microseconds). Both
+    # routes give the same bounds. The JAX package's values.
+    _QUERY_ROUTE_DEFAULT = "auto"  # "auto" | "device" | "host"
+    HOST_QUERY_MAX = 64  # "auto": batches up to this size go to the host
+
+    # The single-query methods _host_ops binds onto the instance.
+    _EXT_BOUND_OPS = ("positions", "contains", "count", "any_position")
+
+    @property
+    def query_route(self) -> str:
+        return self._query_route
+
+    @query_route.setter
+    def query_route(self, value: str) -> None:
+        # A new route unbinds the methods _host_ops bound onto the instance.
+        self._query_route = value
+        for name in self._EXT_BOUND_OPS:
+            self.__dict__.pop(name, None)
+
+    def _route_host(self, nq: int) -> bool:
+        if self.query_route == "device":
+            return False
+        if self.query_route == "host":
+            return True  # explicit: raises NativeUnavailable if unbuilt
+        if nq > self.HOST_QUERY_MAX:
+            return False
+        return dispatch_is_expensive(self.device) and native.available()
+
+    def _host_ops(self):
+        """The host route's single-query operations (the extension's, or
+        the ctypes handle's without it), bound onto the instance: the next
+        ``st.positions(q)`` is one instance-dict lookup and one call (the
+        extension takes bytes, str and buffers in C). The ``query_route``
+        setter unbinds them."""
+        handle = self._ensure_host_handle()
+        ops = handle._ext if handle._ext is not None else handle
+        for name in self._EXT_BOUND_OPS:
+            self.__dict__[name] = getattr(ops, name)
+        return ops
+
     def _bounds_batch(self, queries: Sequence) -> tuple[np.ndarray, np.ndarray]:
         """(start, count) rank bounds, int64, for a query batch.
 
         Query length and batch size are bucketed to powers of two as in
         the JAX package; batches beyond MAX_QUERY_BATCH go in chunks.
+        Small batches of a CUDA table answer on the host (``query_route``).
         """
         nq = len(queries)
+        if self._route_host(nq):
+            if nq == 1:  # microsecond path: cached pointers, one call
+                s, c = self._ensure_host_handle().bounds_one(queries[0])
+                return np.array([s], np.int64), np.array([c], np.int64)
+            starts, counts = native.bounds_batch(self._raw, self._table,
+                                                 queries)
+            return starts.astype(np.int64), counts.astype(np.int64)
         self._ensure_device()
         if nq > self.MAX_QUERY_BATCH:
             starts, counts = [], []
@@ -328,12 +455,24 @@ class SuffixTable:
         return (starts.cpu().numpy()[:nq].astype(np.int64),
                 counts.cpu().numpy()[:nq].astype(np.int64))
 
+    def _ensure_host_handle(self):
+        if self._host_handle is None:
+            with self._init_lock:  # double-checked: creation is idempotent
+                if self._host_handle is None:
+                    self._host_handle = native.BoundsHandle(self._raw,
+                                                            self._table)
+        return self._host_handle
+
     def positions(self, query) -> np.ndarray:
         """All byte offsets where ``query`` occurs, in SA (unordered) order
-        (reference: src/table.rs:223-259)."""
+        (reference: src/table.rs:223-259). With the extension built, the
+        host route is one C call returning a read-only view of the
+        table."""
+        if self._route_host(1):
+            return self._host_ops().positions(query)
         starts, counts = self._bounds_batch([query])
-        s, c = int(starts[0]), int(counts[0])
-        return self._table[s : s + c]
+        s = int(starts[0])
+        return self._table[s : s + int(counts[0])]
 
     def positions_batch(self, queries: Sequence) -> list[np.ndarray]:
         """``positions`` for many queries in one device dispatch."""
@@ -342,6 +481,8 @@ class SuffixTable:
 
     def contains(self, query) -> bool:
         """Existence test (reference: src/table.rs:197-199)."""
+        if self._route_host(1):
+            return self._host_ops().contains(query)
         _, counts = self._bounds_batch([query])
         return bool(counts[0] > 0)
 
@@ -351,6 +492,8 @@ class SuffixTable:
 
     def count(self, query) -> int:
         """Number of occurrences (no slice materialization)."""
+        if self._route_host(1):
+            return self._host_ops().count(query)
         _, counts = self._bounds_batch([query])
         return int(counts[0])
 
@@ -361,10 +504,22 @@ class SuffixTable:
     def any_position(self, query):
         """An arbitrary matching byte offset, or None
         (reference: src/table.rs:279-293)."""
+        if self._route_host(1):
+            return self._host_ops().any_position(query)
         starts, counts = self._bounds_batch([query])
         if counts[0] == 0:
             return None
         return int(self._table[int(starts[0])])
+
+    def verify(self, device: bool = False) -> bool:
+        """Certify that ``table()`` is exactly the suffix array of the
+        text: O(n) on the host (permutation, first-byte monotonicity,
+        successor-rank induction; utils/verify.py), or with
+        ``device=True`` two sorts and reductions on the table's device."""
+        from suffix_torch.utils.verify import verify_suffix_array
+
+        return verify_suffix_array(self._raw, self._table,
+                                   device=self.device if device else False)
 
     # ------------------------------------------------------------------ misc
 

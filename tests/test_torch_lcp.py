@@ -286,11 +286,13 @@ def test_bulk_arm_raises(jax_mods, monkeypatch):
     assert np.array_equal(got, quadratic_lcp(text, port.table()))
 
 
-def test_lcp_methods():
+def test_lcp_methods(jax_mods):
     st_ = _cpu("banana")
     assert st_.lcp_lens().tolist() == [0, 1, 3, 0, 0, 2]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st_.lcp_lens(method="native")
+    ref = jax_mods[3].new("banana")
+    assert np.array_equal(st_.lcp_lens(method="native"),
+                          ref.lcp_lens(method="native"))
+    assert st_.lcp_lens(method="native").dtype == np.uint32
     with pytest.raises(ValueError):
         st_.lcp_lens(method="bogus")
     with pytest.raises(ValueError):

@@ -121,19 +121,30 @@ def test_parts_round_trip_and_naive():
     back = SuffixTable.from_parts(text, table, device="cpu")
     assert back == st and hash(back) == hash(st)
     assert SuffixTable.new_naive("mississippi", device="cpu") == st
-    assert SuffixTable.new("mississippi", engine="naive", device="cpu") == st
+    with pytest.raises(ValueError, match="unknown engine: 'naive'"):
+        SuffixTable.new("mississippi", engine="naive", device="cpu")
+    with pytest.raises(ValueError, match="unknown engine: 'naive'"):
+        suffix_tpu.SuffixTable.new("mississippi", engine="naive")
     with pytest.raises(ValueError):
         SuffixTable.from_parts("abc", np.array([0, 1], np.uint32),
                                device="cpu")
 
 
 def test_collect_stats():
-    st = SuffixTable.new(b"abaabababbabbb" * 8, engine="sais", device="cpu",
+    """The SA-IS build's stats follow the JAX package's schema: the same
+    keys and values but for the timings (the SA-IS round counters stay
+    in ``ops/sais.py``'s own ``stats``, tests/test_torch_sais.py)."""
+    text = b"abaabababbabbb" * 8
+    st = SuffixTable.new(text, engine="sais", device="cpu",
                          collect_stats=True)
     stats = st.build_stats
     assert stats["engine"] == "sais-device" and stats["device"] == "cpu"
     assert stats["n_bytes"] == 112 and stats["recursion_depth"] >= 1
-    assert stats["l_rounds"] > 0 and stats["s_rounds"] > 0
+    want = suffix_tpu.SuffixTable.new(text, engine="sais",
+                                      collect_stats=True).build_stats
+    timing = ("elapsed_s", "bytes_per_s")
+    assert ({k: v for k, v in stats.items() if k not in timing}
+            == {k: v for k, v in want.items() if k not in timing})
 
 
 def test_checkpoint_cross_load(tmp_path, dna_10k, rng):
@@ -176,19 +187,19 @@ def _near_periodic() -> bytes:
 
 @pytest.mark.parametrize("engine", ["device", "native", "auto"])
 def test_unported_engines_raise(engine):
-    """"native" is not ported and raises; "device" (and "auto", which is
-    "device" in the port) build the patched route's corpus as the JAX
-    package does."""
-    if engine == "native":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SuffixTable.new("banana", engine=engine, device="cpu")
-        return
+    """Each engine builds the patched route's corpus as the JAX package
+    does, with its label: "device" the patched route, "native" and "auto"
+    (2^17 bytes, under AUTO_NATIVE_MAX) the native SA-IS."""
     text = _near_periodic()
     st = SuffixTable.new(text, engine=engine, device="cpu",
                          collect_stats=True)
-    assert st.build_stats["engine"].startswith("patched(q=1000,")
-    assert np.array_equal(st.table(),
-                          suffix_tpu.SuffixTable.new(text).table())
+    ref = suffix_tpu.SuffixTable.new(text, engine=engine, collect_stats=True)
+    assert st.build_stats["engine"] == ref.build_stats["engine"]
+    if engine == "device":
+        assert st.build_stats["engine"].startswith("patched(q=1000,")
+    else:
+        assert st.build_stats["engine"] == "native-sais"
+    assert np.array_equal(st.table(), ref.table())
 
 
 def test_keyless_size_raises():
@@ -218,7 +229,8 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, suffix_torch, suffix_torch.utils.checkpoint, "
             "suffix_torch.utils.verify, suffix_torch.ops.naive, "
             "suffix_torch.ops.patched, suffix_torch.ops.lcp, "
-            "suffix_torch.ops.search2, suffix_torch.utils.textgen\n"
+            "suffix_torch.ops.search2, suffix_torch.utils.textgen, "
+            "suffix_torch.native, suffix_torch.utils.metrics\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'suffix_tpu')]\n"
             "assert not bad, bad\n")
