@@ -74,6 +74,18 @@ Phases, each printing one JSON line:
               every (start, count) equal to the flat-key engine's (12-word
               keys) on the same table, 4,096 bounds checked on the bytes;
               queries per second.
+   serve_128m_deep — the serving runtime over that index: serve_tcp in
+              a thread (127.0.0.1, port 0), 16 client threads, each
+              sending one at a time 32 ``count`` requests of 256 patterns
+              of the 131,072 battery and 8 ``positions`` requests of 16
+              drawn 64-byte or random ones (base64), first through a
+              Batcher(max_batch=131072, max_wait_ms=2), then without one;
+              every answer equal to the table's own batch calls;
+              requests/s, queries/s, p50/p99 request ms, queries per
+              drained batch (a counting wrapper); then 256 and 4,096
+              queries as one caller's batches.
+   profile_queries_128m_deep_4096 — torch.profiler over one 4,096-query
+              deep batch (a full drain's size).
    lean_128m — the lean keyless build's fences and blocks bit-equal to
               the one-program build's, with the peak memory of each.
 12. native  — build the C++ library and CPython extension of
@@ -89,6 +101,11 @@ Phases, each printing one JSON line:
               and 128 MiB tables: the sampler's route to the native Kasai
               (wrappers count it once, the bulk ladder never), 65,536
               sampled pairs checked against the bytes.
+   tree_4m  — ArraySuffixTree.from_suffix_table on the 4 MiB DNA and
+              near-repeated tables (seconds, nodes, deepest node, peak
+              memory) with the reference's three tree invariants; the
+              100 KB fixture's arrays equal on the card and the CPU; the
+              10 KB fixture's dot equal to the host fold's.
    queries_hybrid — 4,096 single queries of each method on the 4 MiB
               default-built table under ``query_route="auto"`` (the host
               route, the extension's methods bound onto the table) and
@@ -98,12 +115,20 @@ Phases, each printing one JSON line:
    verify_device — ``verify(device=True)`` against the host certificate
               on the 4 and 64 MiB tables and on a 4 MiB table with two
               entries swapped; seconds of each form.
+13. cli     — ``python -m suffix_torch`` in subprocesses on the 4 MiB DNA
+              text in a temporary directory: build --stats -o, stree
+              banana (JAX's dot, pinned) and warmup at once, then search
+              (64 patterns, checked on the bytes), info (max LCP) and
+              serve --tcp 0 --batch --warm (ping, count, quit) at once;
+              each step's wall seconds.
 
 byte_histogram's launch counter is set to 0 just before phase 5 and read
 just after phase 6 (its path is the SA-IS build); the probes' counters
 (minmax_stages' by path too) just before and after the battery, which
 must run the register path. The doubling and LCP path runs library
-operations only, the native and hybrid phases host C++. The line before
+operations only, the native and hybrid phases host C++; the serving,
+tree and CLI phases run those paths and launch none of the four kernels.
+The line before
 the last is the kernel table (``{"kernels": [...]}``); the last line is
 the device summary. Any failed
 check raises, and the script exits non-zero without those two lines. It
@@ -112,12 +137,14 @@ imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import base64
 import ctypes
 import hashlib
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -125,6 +152,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "fixtures" / "AP009048_100000.fasta"
+FIXTURE_10K = ROOT / "tests" / "fixtures" / "AP009048_10000.fasta"
 GOLDEN_SA_100K = (
     "d674074d481d76d7ac4e4ae4fe5df93a458a3b6fcb483ac92190babc52029694")
 # tests/test_golden.py: SA and LCP digests, and the JAX package's route
@@ -176,20 +204,46 @@ LCP_SCOPES = ("L1_base_compact", "L2_packed_stage", "L3_rows_stage",
 BATTERY_LENS = (4, 8, 14, 24, 40)
 BATTERY_P = (.25, .25, .25, .15, .10)
 BATTERY_SIZES = (16384, 131072)
+# serve_128m_deep: client threads, and each client's count requests (256
+# patterns each) and positions requests (16 patterns each).
+SERVE_CLIENTS = 16
+SERVE_COUNT_REQS = 32
+SERVE_POS_REQS = 8
+# `stree banana`: the JAX package's dot string (pinned on the CPU by
+# tests/test_torch_tree.py::test_dot_of_banana_is_pinned).
+BANANA_DOT = "\n".join([
+    "digraph tree {",
+    'label=<<FONT POINT-SIZE="20">banana</FONT>>;',
+    'labelloc="t";', 'labeljust="l";',
+    '0 [label=""]', '1 [label="6", shape=box]', '0 -> 1 [label="$"]',
+    '2 [label=""]', '3 [label="5", shape=box]', '2 -> 3 [label="$"]',
+    '0 -> 2 [label="a"];', '4 [label=""]', '5 [label="3", shape=box]',
+    '4 -> 5 [label="$"]', '2 -> 4 [label="na"];',
+    '6 [label="1", shape=box]', '4 -> 6 [label="na$"];',
+    '7 [label="0", shape=box]', '0 -> 7 [label="banana$"];',
+    '8 [label=""]', '9 [label="4", shape=box]', '8 -> 9 [label="$"]',
+    '0 -> 8 [label="na"];', '10 [label="2", shape=box]',
+    '8 -> 10 [label="na$"];', "}", ""])
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def overlapping_count(raw: bytes, q: bytes) -> int:
-    """Occurrences of ``q`` in ``raw``, overlaps included: the count of
-    ``re.finditer(b"(?=" + re.escape(q) + b")", raw)``, by ``bytes.find``."""
-    k, p = 0, raw.find(q)
+def occurrences(raw: bytes, q: bytes) -> list[int]:
+    """Every offset of ``q`` in ``raw``, overlaps included, ascending: the
+    starts of ``re.finditer(b"(?=" + re.escape(q) + b")", raw)``, by
+    ``bytes.find``."""
+    out, p = [], raw.find(q)
     while p >= 0:
-        k += 1
+        out.append(p)
         p = raw.find(q, p + 1)
-    return k
+    return out
+
+
+def overlapping_count(raw: bytes, q: bytes) -> int:
+    """The number of ``occurrences``."""
+    return len(occurrences(raw, q))
 
 
 def dna_text(rng: np.random.Generator) -> bytes:
@@ -1084,6 +1138,392 @@ def check_verify_device(SuffixTable, tables, card: str) -> None:
     emit("verify_device", card=card, rows=rows)
 
 
+class CountedTable:
+    """A table whose ``_bounds_batch`` records each dispatch's query
+    count; every other attribute is the wrapped table's. Given to a
+    ``Batcher`` it counts the queries of each drained batch; given to
+    ``serve_tcp`` without one, each request's."""
+
+    def __init__(self, st):
+        self._st = st
+        self.sizes: list[int] = []
+
+    def __getattr__(self, name):
+        return getattr(self._st, name)
+
+    def _bounds_batch(self, queries):
+        self.sizes.append(len(queries))
+        return self._st._bounds_batch(queries)
+
+
+def serve_requests(kinds: dict[str, list[bytes]]) -> list[list[tuple]]:
+    """Each client's requests: 32 ``count`` requests of 256 patterns of
+    the 131,072 mixed battery, and after every fourth one a ``positions``
+    request of 16 drawn 64-byte or random patterns. Returns, per client,
+    (op, patterns, JSON line) in sending order."""
+    counts = kinds["mixed131072"]
+    pos = kinds["drawn64"] + kinds["random"]
+    out = []
+    for c in range(SERVE_CLIENTS):
+        reqs = []
+        for j in range(SERVE_COUNT_REQS):
+            k = c * SERVE_COUNT_REQS + j
+            reqs.append(("count", counts[k * 256:(k + 1) * 256]))
+            if j % 4 == 3:
+                m = c * SERVE_POS_REQS + j // 4
+                reqs.append(("positions", pos[m * 16:(m + 1) * 16]))
+        out.append([(op, qs, json.dumps({
+            "id": i, "op": op,
+            "q_b64": [base64.b64encode(q).decode() for q in qs]}) + "\n")
+            for i, (op, qs) in enumerate(reqs)])
+    return out
+
+
+def serve_load(serve, st, requests: list[list[tuple]], batcher) -> dict:
+    """One ``serve_tcp`` on 127.0.0.1, port 0, over ``st`` with
+    ``batcher`` (or none); a client thread each, each sending its
+    requests one at a time on one connection. Returns the answers and
+    each request's seconds (send to answer), per client, and the wall
+    seconds from the common start to the last answer."""
+    import socket
+
+    ready = threading.Event()
+    server = threading.Thread(target=serve.serve_tcp, args=(st, 0),
+                              kwargs={"batcher": batcher,
+                                      "ready_event": ready}, daemon=True)
+    server.start()
+    if not ready.wait(timeout=60):
+        raise AssertionError("serve_tcp did not start")
+    addr = ready.server.server_address
+    gate = threading.Barrier(len(requests) + 1)
+    answers = [None] * len(requests)
+    latency = [None] * len(requests)
+    errors = []
+
+    def client(c):
+        try:
+            with socket.create_connection(addr, timeout=300) as conn:
+                f = conn.makefile("rb")
+                got, secs = [], []
+                gate.wait(timeout=60)
+                for _, _, line in requests[c]:
+                    t0 = time.perf_counter()
+                    conn.sendall(line.encode())
+                    got.append(json.loads(f.readline()))
+                    secs.append(time.perf_counter() - t0)
+                answers[c], latency[c] = got, secs
+        except Exception as e:  # reported below, after the join
+            errors.append(e)
+            gate.abort()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(requests))]
+    try:
+        for t in threads:
+            t.start()
+        gate.wait(timeout=60)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        ready.server.shutdown()
+        server.join(timeout=60)
+    if errors or any(t.is_alive() for t in threads) or server.is_alive():
+        raise AssertionError(f"serving run failed: {errors}")
+    return {"answers": answers, "latency": latency, "wall": wall}
+
+
+def check_serve(torch, serve, st, raw: bytes, card: str) -> None:
+    """serve_128m_deep: the serving runtime over the 128 MiB deep keyless
+    index, 16 clients over TCP, with a Batcher(max_batch=131072,
+    max_wait_ms=2) and without one; every answer equal to the table's
+    own batch calls on the same patterns."""
+    t_phase = time.perf_counter()
+    kinds = battery_128m(np.frombuffer(raw, np.uint8))
+    requests = serve_requests(kinds)
+    count_qs = [q for reqs in requests for op, qs, _ in reqs
+                if op == "count" for q in qs]
+    pos_qs = [q for reqs in requests for op, qs, _ in reqs
+              if op == "positions" for q in qs]
+    want_count = dict(zip(count_qs, st.count_batch(count_qs).tolist()))
+    want_pos = {q: sorted(h.tolist())
+                for q, h in zip(pos_qs, st.positions_batch(pos_qs))}
+    rows = {}
+    for mode in ("batcher", "no_batcher"):
+        counted = CountedTable(st)
+        batcher = None
+        if mode == "batcher":
+            batcher = serve.Batcher(counted, max_batch=131072,
+                                    max_wait_ms=2.0)
+        try:
+            run = serve_load(serve, st if batcher else counted, requests,
+                             batcher)
+        finally:
+            if batcher is not None:
+                batcher.close()
+        for reqs, got in zip(requests, run["answers"]):
+            for (op, qs, _), ans in zip(reqs, got):
+                if op == "count":
+                    ok = ans["result"] == [want_count[q] for q in qs]
+                else:
+                    ok = [sorted(r) for r in ans["result"]] == [
+                        want_pos[q] for q in qs]
+                if not ok:
+                    raise AssertionError(f"{mode}: a {op} answer differs "
+                                         f"from the table's: {ans}")
+        lat = np.array([x for secs in run["latency"] for x in secs])
+        n_req = int(lat.size)
+        n_q = len(count_qs) + len(pos_qs)
+        rows[mode] = {
+            "requests": n_req, "queries": n_q, "wall_s": run["wall"],
+            "requests_per_s": n_req / run["wall"],
+            "queries_per_s": n_q / run["wall"],
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "max_ms": float(lat.max()) * 1e3,
+            "dispatches": len(counted.sizes),
+            "mean_queries_per_dispatch": float(np.mean(counted.sizes)),
+            "max_queries_per_dispatch": int(max(counted.sizes)),
+        }
+    # One caller, no server: a request's batch and a full drain's, so the
+    # served times split into the batch itself and what serving adds.
+    alone = {}
+    for k in (256, 4096):
+        times = []
+        for _ in range(9):
+            t0 = time.perf_counter()
+            st.count_batch(count_qs[:k])
+            times.append(time.perf_counter() - t0)
+        alone[f"batch_{k}_ms"] = statistics.median(times) * 1e3
+    emit("serve_128m_deep", card=card, clients=SERVE_CLIENTS,
+         count_requests=SERVE_CLIENTS * SERVE_COUNT_REQS,
+         positions_requests=SERVE_CLIENTS * SERVE_POS_REQS,
+         positions_hits=sum(len(v) for v in want_pos.values()), **rows,
+         alone=alone, phase_s=time.perf_counter() - t_phase)
+
+
+def check_tree_invariants(tree, sa: np.ndarray, spot: int = 2000) -> None:
+    """The reference's three tree invariants (suffix_tree/src/lib.rs:
+    507-567) on the arrays, as tests/test_atree.py:90-124 states them:
+    every rank is a leaf child or a node terminal and leaves() counts the
+    bytes; every internal node has two children, or one and a terminal;
+    preorder suffix indices enumerate the SA (the first ``spot``); and
+    path depth grows down every edge."""
+    n = tree.n
+    n_term = int(tree.is_term.sum())
+    if n_term != int((tree.node_term >= 0).sum()):
+        raise AssertionError("terminal ranks and node terminals differ")
+    leaf_like = (n - n_term) + int(
+        ((tree.node_term >= 0) & (tree.node_end > tree.node_start)).sum())
+    if leaf_like != n:
+        raise AssertionError(f"{leaf_like} leaves for {n} bytes")
+    e_parent = tree._ensure_edges()[0]
+    counts = np.bincount(e_parent[e_parent >= 0].astype(np.int64),
+                         minlength=tree.m)
+    if not np.all((counts >= 2) | ((tree.node_term >= 0) & (counts >= 1))):
+        raise AssertionError("an internal node has too few children")
+    for i, sufi in enumerate(tree.root().suffix_indices()):
+        if sufi != int(sa[i]):
+            raise AssertionError(f"preorder suffix {i} is not the SA's")
+        if i >= spot:
+            break
+    pd = np.where(tree.node_parent >= 0,
+                  tree.node_d[np.maximum(tree.node_parent, 0)], 0)
+    if not np.all(tree.node_d > pd):
+        raise AssertionError("a node is no deeper than its parent")
+
+
+TREE_ARRAYS = ("node_l", "node_d", "node_r", "node_parent", "node_start",
+               "node_end", "node_term", "leaf_parent", "leaf_start",
+               "is_term")
+
+
+def check_trees(torch, SuffixTable, tables, dev, card: str) -> None:
+    """tree_4m: ArraySuffixTree over the 4 MiB DNA and near-repeated
+    tables (LCP and device program), seconds, nodes and peak; the three
+    invariants on each; the card's arrays equal to the same program on the
+    CPU over the 100 KB fixture; the dot string equal to the host fold's
+    over the 10 KB fixture."""
+    from suffix_torch import ArraySuffixTree, SuffixTree
+    from suffix_torch.tree import to_dot
+
+    t_phase = time.perf_counter()
+    rows = {}
+    for name, st in tables:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree = ArraySuffixTree.from_suffix_table(st)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        check_tree_invariants(tree, st.table())
+        rows[name] = {"n": tree.n, "m": tree.m, "seconds": secs,
+                      "max_depth": int(tree.node_d.max(initial=0)),
+                      "peak_device_gib": peak / 2**30,
+                      "peak_over_resident_gib": (peak - base) / 2**30,
+                      "invariants_s": time.perf_counter() - t0}
+        del tree
+    fixture = FIXTURE.read_bytes()
+    on_card = ArraySuffixTree.from_suffix_table(
+        SuffixTable.new(fixture, engine="auto", device=dev))
+    on_cpu = ArraySuffixTree.from_suffix_table(
+        SuffixTable.new(fixture, engine="auto", device="cpu"))
+    if on_card.m != on_cpu.m or not all(
+            np.array_equal(getattr(on_card, k), getattr(on_cpu, k))
+            for k in TREE_ARRAYS):
+        raise AssertionError("the 100 KB tree's arrays differ between the "
+                             "card and the CPU")
+    small = SuffixTable.new(FIXTURE_10K.read_bytes(), device=dev)
+    dot = to_dot(ArraySuffixTree.from_suffix_table(small))
+    if dot != to_dot(SuffixTree.from_suffix_table(small)):
+        raise AssertionError("the 10 KB array tree's dot differs from the "
+                             "host fold's")
+    emit("tree_4m", card=card, trees=rows, fixture_100k_m=on_card.m,
+         dot_10k_bytes=len(dot), phase_s=time.perf_counter() - t_phase)
+
+
+def check_cli(raw: bytes, max_lcp: int, card: str,
+              platform: str = "cuda") -> None:
+    """cli: ``python -m suffix_torch`` in subprocesses on the 4 MiB DNA
+    text in a temporary directory (build with stats and -o, stree banana
+    and warmup at once; then search, info and serve --tcp 0 --batch
+    --warm at once), each output checked; each step's wall seconds."""
+    import queue
+    import socket
+    import tempfile
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 70)
+    patterns = [raw[s:s + 14] for s in rng.integers(0, len(raw) - 14, 48)]
+    patterns += [bytes(rng.integers(101, 123, size=8, dtype=np.uint8))
+                 for _ in range(16)]
+    queries = [q.decode() for q in patterns]
+    steps = {}
+
+    def popen(*args):
+        cmd = [sys.executable, "-m", "suffix_torch", "--platform", platform,
+               *args]
+        return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def start(name, *args):
+        """A step in its own process, its output collected by a thread
+        that stamps the step's wall seconds when the process ends."""
+        t0 = time.perf_counter()
+        proc = popen(*args)
+        done = {}
+
+        def collect():
+            try:
+                done["out"], done["err"] = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                done["out"], done["err"] = proc.communicate()
+            steps[name] = time.perf_counter() - t0
+
+        t = threading.Thread(target=collect, daemon=True)
+        t.start()
+        return name, proc, t, done
+
+    def finish(job) -> str:
+        name, proc, t, done = job
+        t.join(timeout=700)
+        if t.is_alive() or proc.returncode != 0:
+            raise AssertionError(f"cli {name} exited {proc.returncode}: "
+                                 f"{done.get('err', '')[-2000:]}")
+        return done["out"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        text, idx = Path(tmp) / "dna.txt", Path(tmp) / "idx.npz"
+        text.write_bytes(raw)
+        jobs = [start("build", "build", str(text), "-o", str(idx), "--stats"),
+                start("stree", "stree", "banana"),
+                start("warmup", "warmup", "--size", str(len(raw)),
+                      "--batches", "4096", "--qlens", "16")]
+        build, stree, warmup = (finish(j) for j in jobs)
+        lines = build.splitlines()
+        stats = json.loads(lines[1])
+        if lines[0] != f"Suffixes: {len(raw)}" or stats["engine"] != \
+                "native-sais":
+            raise AssertionError(f"cli build printed {build[:300]!r}")
+        if stree != BANANA_DOT:
+            raise AssertionError("cli stree banana differs from JAX's dot")
+        warmed = [ln.strip() for ln in warmup.splitlines()]
+        if not warmed[-1].startswith("warmed ") or len(warmed) < 5:
+            raise AssertionError(f"cli warmup printed {warmup!r}")
+
+        t_serve = time.perf_counter()
+        proc = popen("serve", "--index", str(idx), "--tcp", "0", "--batch",
+                     "--max-batch", "4096", "--warm")
+        jobs = [start("search", "search", "--index", str(idx), *queries),
+                start("info", "info", str(idx))]
+        try:
+            lines_q = queue.Queue()
+
+            def pump():
+                for ln in proc.stderr:
+                    lines_q.put(ln)
+                lines_q.put(None)  # the server exited
+
+            threading.Thread(target=pump, daemon=True).start()
+            stderr = []
+            while True:
+                line = lines_q.get(timeout=600)
+                if line is None:
+                    raise AssertionError("cli serve exited before serving: "
+                                         f"{''.join(stderr)[-2000:]}")
+                stderr.append(line)
+                if line.startswith("serving on "):
+                    break
+            ready_s = time.perf_counter() - t_serve
+            host, port = line.split()[-1].rsplit(":", 1)
+            count_q = patterns[:8]
+            with socket.create_connection((host, int(port)),
+                                          timeout=120) as conn:
+                f = conn.makefile("rw", encoding="utf-8")
+                for req in ({"id": 1, "op": "ping"},
+                            {"id": 2, "op": "count",
+                             "q": [q.decode() for q in count_q]},
+                            {"id": 3, "op": "quit"}):
+                    f.write(json.dumps(req) + "\n")
+                f.flush()
+                answers = [json.loads(x) for x in f]
+            serve_s = time.perf_counter() - t_serve
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+        want = [{"id": 1, "result": "pong"},
+                {"id": 2, "result": [overlapping_count(raw, q)
+                                     for q in count_q]},
+                {"id": 3, "result": "bye"}]
+        if answers != want:
+            raise AssertionError(f"cli serve answered {answers}")
+        search, info = (finish(j) for j in jobs)
+    got = [ln.split("\t") for ln in search.splitlines()]
+    for q, (name, count, pos) in zip(patterns, got):
+        hits = occurrences(raw, q)
+        if name != q.decode() or int(count) != len(hits) or pos != ",".join(
+                map(str, hits)):
+            raise AssertionError(f"cli search {q!r}: {count} hits")
+    if len(got) != len(patterns):
+        raise AssertionError(f"cli search printed {len(got)} lines")
+    if f"max lcp:      {max_lcp}" not in info.splitlines():
+        raise AssertionError(f"cli info printed {info!r}")
+    emit("cli", card=card, step_s=steps, serve_ready_s=ready_s,
+         serve_s=serve_s,
+         serve_warm_lines=[ln.strip() for ln in stderr[:-1]],
+         warmup=warmed, build_stats=stats,
+         matched=sum(int(c) > 0 for _, c, _ in got),
+         phase_s=time.perf_counter() - t_phase)
+
+
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
 
@@ -1107,6 +1547,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from suffix_torch import SuffixTable, native
     from suffix_torch.device import resolve_device
+    from suffix_torch import serve
     from suffix_torch.ops import kernels, probes, sais, search2
     from suffix_torch.ops import lcp as lcp_ops
     from suffix_torch.utils import textgen
@@ -1173,8 +1614,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lcp = st_d.lcp_lens()
     lcp_s = time.perf_counter() - t0
-    emit("lcp_4m", lcp_s=lcp_s, max_lcp=check_lcp_sample(raw, st_d.table(),
-                                                          lcp),
+    max_lcp_4m = check_lcp_sample(raw, st_d.table(), lcp)
+    emit("lcp_4m", lcp_s=lcp_s, max_lcp=max_lcp_4m,
          sampled_pairs=LCP_SAMPLES)
 
     raw64 = (np.random.default_rng(SEED + 64).integers(
@@ -1215,6 +1656,10 @@ def main() -> int:
                          "build_128m_text", LABEL_TEXT_128M,
                          generate_s=time.perf_counter() - t0)
     check_deep_queries(torch, search2, st128, text128)
+    check_serve(torch, serve, st128, text128, card)
+    drain = battery_128m(np.frombuffer(text128, np.uint8))["mixed16384"][:4096]
+    profile(torch, "queries_128m_deep_4096", lambda: st128.count_batch(drain),
+            ())
     check_lean(torch, search2, st128)
 
     # ---- the native engine, the Kasai LCPs, the hybrid route, verify ---
@@ -1234,6 +1679,8 @@ def main() -> int:
     del st_n
     check_lcp_kasai(lcp_ops, native, st_near, nearrep, "lcp_4m_nearrep",
                     card)
+    check_trees(torch, SuffixTable, [("dna_4m", st_d), ("nearrep_4m", st_near)],
+                "cuda", card)
     del st_near
     check_lcp_kasai(lcp_ops, native, st128, text128, "lcp_128m_text", card)
     del st128, text128
@@ -1241,6 +1688,7 @@ def main() -> int:
     check_verify_device(SuffixTable, [("dna_4m", raw, st_d.table()),
                                       ("dna_64m", raw64, tab64)], card)
     del st_d, raw64, tab64
+    check_cli(raw, max_lcp_4m, card)
 
     print(json.dumps({"kernels": [
         kernel_entry("byte_histogram", "suffix_torch/csrc/histogram.cu",

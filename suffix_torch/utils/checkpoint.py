@@ -1,8 +1,8 @@
 """Index checkpoint / resume in the JAX package's ``.npz`` format
 (``suffix_tpu/utils/checkpoint.py``, format_version 1): ``text``,
-``table``, ``was_str`` and, when given, the ``lcp`` array (uint32) and
-``build_stats`` as its JSON text. An index saved by either package loads
-in the other.
+``table``, ``was_str`` and, when given, the ``lcp`` array (uint32), the
+multi-document offsets ``doc_starts`` (int64) and ``build_stats`` as its
+JSON text. An index saved by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ FORMAT_VERSION = 1
 
 
 def save_index(path: str, st, *, lcp: np.ndarray | None = None,
+               doc_starts: np.ndarray | None = None,
                build_stats: dict | None = None) -> None:
     payload = {
         "format_version": np.int64(FORMAT_VERSION),
@@ -27,6 +28,8 @@ def save_index(path: str, st, *, lcp: np.ndarray | None = None,
     }
     if lcp is not None:
         payload["lcp"] = np.asarray(lcp, dtype=np.uint32)
+    if doc_starts is not None:
+        payload["doc_starts"] = np.asarray(doc_starts, dtype=np.int64)
     if build_stats is not None:
         text = json.dumps(build_stats, sort_keys=True, default=str)
         payload["build_stats"] = np.frombuffer(text.encode("utf-8"),

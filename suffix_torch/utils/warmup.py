@@ -1,0 +1,126 @@
+"""Ahead-of-time warming of the serving pipeline, ported from
+``suffix_tpu/utils/warmup.py``.
+
+Eager PyTorch compiles nothing, but the first call of each program on a
+card still pays for the CUDA context, cuBLAS/CUB workspace and the
+caching allocator's growth to the program's peak. ``warm`` runs the JAX
+package's program list once at the same power-of-two buckets
+(ops/padding.py): the build, the two-phase and adaptive builds, the query
+index, the query batches and the LCP, so a serving process meets its
+first request with all of that in place.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from suffix_torch.device import resolve_device, sync
+from suffix_torch.utils.config import SHARDED_TODO
+
+
+def warm(n_bytes: int,
+         query_batches: tuple[int, ...] = (4096, 65536),
+         query_lens: tuple[int, ...] = (16,),
+         lcp: bool = True,
+         alphabet_sizes: tuple[int, ...] = (4,),
+         verbose: bool = True,
+         device=None) -> list[tuple[str, float]]:
+    """Run the full serving pipeline once for a corpus of ``n_bytes`` on
+    ``device`` (``None`` = CUDA).
+
+    ``alphabet_sizes``: corpus classes whose alphabet-adaptive packed
+    build (ops/prefix_doubling._suffix_array_packed) should be warmed in
+    addition to the byte-ladder engine: pass the distinct-byte counts of
+    the deployment's corpora (4 = DNA; () to skip).
+
+    Returns [(program, seconds)] for each warmed program.
+    """
+    from suffix_torch.ops import search2
+    from suffix_torch.ops.lcp import _lcp_keyed
+    from suffix_torch.ops.padding import PAD, bucket_size
+    from suffix_torch.ops.prefix_doubling import (
+        ADAPTIVE_PACK_MIN, I32, TIE_CAP_FRAC, TWO_PHASE_MIN, _adaptive_plan,
+        _phase1_padded, _suffix_array_packed, _suffix_array_padded,
+        _two_phase_build, pick_init_words)
+
+    dev = resolve_device(device)
+    timings: list[tuple[str, float]] = []
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        dt = time.perf_counter() - t0
+        timings.append((name, dt))
+        if verbose:
+            print(f"  warmed {name}: {dt:.1f}s", flush=True)
+        return out
+
+    def upload(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(dev)
+
+    n_pad = bucket_size(max(n_bytes, 1))
+    rng = np.random.default_rng(0)
+    padded = np.full((n_pad,), PAD, np.int32)
+    padded[:n_bytes] = rng.integers(0, 256, size=n_bytes, dtype=np.uint8)
+    t_dev = upload(padded)
+
+    iw = pick_init_words(n_pad)
+    sa_full = step(f"build n={n_pad} (init_words={iw})",
+                   lambda: _suffix_array_padded(t_dev, iw))
+    if n_pad >= TWO_PHASE_MIN:
+        # The two-phase route (what suffix_array_bytes runs on byte-ladder
+        # / text-class corpora at this size), end to end on the random
+        # corpus.
+        step(f"two-phase build n={n_pad}",
+             lambda: _two_phase_build(
+                 _phase1_padded(t_dev, iw, I32, n_pad // TIE_CAP_FRAC),
+                 n_pad))
+    if n_pad >= ADAPTIVE_PACK_MIN:
+        for sigma in alphabet_sizes:
+            sample = (rng.integers(0, max(int(sigma), 2),
+                                   size=min(n_bytes, 4096),
+                                   dtype=np.uint8) + 97)
+            plan = _adaptive_plan(sample, n_pad)
+            if plan is None:
+                continue
+            _, bits, cpw, n_words = plan
+            codes = np.zeros((n_pad,), np.int32)
+            codes[:n_bytes] = rng.integers(1, int(sigma) + 1,
+                                           size=n_bytes, dtype=np.int32)
+            c_dev = upload(codes)
+            step(f"adaptive build n={n_pad} sigma={sigma} "
+                 f"({bits}b x {cpw * n_words}ch)",
+                 lambda c=c_dev, w=n_words, b=bits, k=cpw:
+                 _suffix_array_packed(c, w, b, k))
+    # Query/LCP programs take the REAL table layout: sa[0:n) = suffix
+    # array, zero-filled past n (padding suffixes sliced off).
+    sa = torch.zeros((n_pad,), dtype=I32, device=dev)
+    sa[:n_bytes] = sa_full[n_pad - n_bytes:]
+
+    pk, pk_fence, pk_block = step(
+        f"query_index n={n_pad}",
+        lambda: search2.build_query_index(t_dev, sa, n_bytes))
+
+    for q_pad in query_batches:
+        for m_pad in query_lens:
+            q = torch.zeros((q_pad, m_pad), dtype=I32, device=dev)
+            ql = torch.ones((q_pad,), dtype=I32, device=dev)
+            step(f"queries q={q_pad} m={m_pad} n={n_pad}",
+                 lambda q=q, ql=ql, m=m_pad: search2.bounds_batch_merge(
+                     t_dev, n_bytes, sa, n_bytes, pk_fence, pk_block, q, ql,
+                     m))
+
+    if lcp:
+        step(f"lcp n={n_pad}",
+             lambda: _lcp_keyed(t_dev, n_bytes, sa, n_bytes, pk))
+    return timings
+
+
+def warm_sharded(n_bytes: int, n_devices: int,
+                 verbose: bool = True) -> list[tuple[str, float]]:
+    """Warm the sharded build's programs: not ported yet."""
+    raise NotImplementedError(f"warm_sharded: {SHARDED_TODO}")

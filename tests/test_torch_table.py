@@ -230,7 +230,11 @@ def test_import_pulls_in_no_jax():
             "suffix_torch.utils.verify, suffix_torch.ops.naive, "
             "suffix_torch.ops.patched, suffix_torch.ops.lcp, "
             "suffix_torch.ops.search2, suffix_torch.utils.textgen, "
-            "suffix_torch.native, suffix_torch.utils.metrics\n"
+            "suffix_torch.native, suffix_torch.utils.metrics, "
+            "suffix_torch.cli, suffix_torch.serve, suffix_torch.multidoc, "
+            "suffix_torch.tree, suffix_torch.tree.atree, "
+            "suffix_torch.utils.config, suffix_torch.utils.profiling, "
+            "suffix_torch.utils.warmup, suffix_torch.examples.basic\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'suffix_tpu')]\n"
             "assert not bad, bad\n")
