@@ -46,6 +46,13 @@ Phases, each printing one JSON line:
               with build stats, certified; the phase-6 query batch on it
               (queries_device); then ``lcp_lens()``, 65,536 sampled
               adjacent pairs checked against their byte-wise common prefix.
+   search_probe — the probe-chain engines on that table and its
+              262,144-query battery: ``bounds_batch`` and
+              ``bounds_batch_fast`` (with ``probe_lut``), every count and
+              live start equal to the flat merge-join engine's; median
+              seconds of 5 and q/s of each and of the merge-join.
+   sais_hybrid — ``suffix_array_sais`` (LMS ranks from the doubling
+              engine) on the same text, its digest the default build's.
 9. build_64m_device — the default build of 64 MiB of random DNA, certified.
    lcp_64m — ``lcp_lens()`` on the 64 MiB table: the bulk ladder once and
               Kasai never (both counted by wrappers set here), a survivor
@@ -115,19 +122,46 @@ Phases, each printing one JSON line:
    verify_device — ``verify(device=True)`` against the host certificate
               on the 4 and 64 MiB tables and on a 4 MiB table with two
               entries swapped; seconds of each form.
-13. cli     — ``python -m suffix_torch`` in subprocesses on the 4 MiB DNA
-              text in a temporary directory: build --stats -o, stree
-              banana (JAX's dot, pinned) and warmup at once, then search
-              (64 patterns, checked on the bytes), info (max LCP) and
-              serve --tcp 0 --batch --warm (ping, count, quit) at once;
-              each step's wall seconds.
+13. the sharded build (``suffix_torch/parallel``) over a one-rank NCCL
+   mesh in this process (``make_mesh(1)``):
+   collective_bins — ``global_bucket_layout`` on the 64 MiB DNA text:
+              counts, heads and tails equal to ``torch.bincount``; the
+              byte_histogram counter set to 0 just before the call and
+              read just after (one launch); the resident block's layout
+              beside the plain histogram and ``bincount``.
+   sharded_build — ``suffix_array_sharded`` on the 64 MiB DNA text (the
+              single-device closure a one-rank mesh takes) and
+              ``suffix_array_sharded_stepped`` (the SPMD round body) on
+              it and on the 128 MiB text, every digest the default
+              build's; seconds, rounds, peak memory.
+   sharded_ckpt — the stepped build of the 4 MiB near-repeated corpus,
+              checkpointed every round; a run stopped by its hook after
+              round 3, then resumed: the same table, the rest of the
+              rounds.
+   sharded_multi — with two or more cards, worlds of 2 and (with four)
+              4 NCCL ranks, one process a card (``launch.spawn``), on the
+              64 MiB text: the one-shot and the stepped build, each digest
+              the default build's, and the bucket layout (one
+              byte_histogram launch a rank); with one card it prints that
+              it did not run, and why.
+14. cli     — ``python -m suffix_torch`` in subprocesses on the 4 MiB DNA
+              text in a temporary directory: build --stats -o, build
+              --engine sharded --devices 1 --checkpoint (its saved table
+              the default build's), stree banana (JAX's dot, pinned) and
+              warmup at once, then search (64 patterns, checked on the
+              bytes), info (max LCP) and serve --tcp 0 --batch --warm
+              (ping, count, quit) at once; each step's wall seconds.
 
 byte_histogram's launch counter is set to 0 just before phase 5 and read
-just after phase 6 (its path is the SA-IS build); the probes' counters
-(minmax_stages' by path too) just before and after the battery, which
-must run the register path. The doubling and LCP path runs library
-operations only, the native and hybrid phases host C++; the serving,
-tree and CLI phases run those paths and launch none of the four kernels.
+just after phase 6 (its path is the SA-IS build), and again just before
+and after collective_bins' layout (the sharded bucket layout); the
+probes' counters (minmax_stages' by path too) just before and after the
+battery, which must run the register path. The doubling and LCP path
+runs library operations only, the native and hybrid phases host C++;
+sais_hybrid's derivation launches byte_histogram outside both counted
+windows; the probe engines, the rest of the sharded build, the serving,
+tree and CLI phases run library operations and collectives and launch
+none of the four kernels.
 The line before
 the last is the kernel table (``{"kernels": [...]}``); the last line is
 the device summary. Any failed
@@ -1385,12 +1419,14 @@ def check_trees(torch, SuffixTable, tables, dev, card: str) -> None:
          dot_10k_bytes=len(dot), phase_s=time.perf_counter() - t_phase)
 
 
-def check_cli(raw: bytes, max_lcp: int, card: str,
+def check_cli(raw: bytes, max_lcp: int, card: str, table_sha: str,
               platform: str = "cuda") -> None:
     """cli: ``python -m suffix_torch`` in subprocesses on the 4 MiB DNA
-    text in a temporary directory (build with stats and -o, stree banana
-    and warmup at once; then search, info and serve --tcp 0 --batch
-    --warm at once), each output checked; each step's wall seconds."""
+    text in a temporary directory (build with stats and -o, the sharded
+    build over one rank with a checkpoint, stree banana and warmup at
+    once; then search, info and serve --tcp 0 --batch --warm at once),
+    each output checked, the sharded build's saved table against
+    ``table_sha``; each step's wall seconds."""
     import queue
     import socket
     import tempfile
@@ -1439,11 +1475,23 @@ def check_cli(raw: bytes, max_lcp: int, card: str,
     with tempfile.TemporaryDirectory() as tmp:
         text, idx = Path(tmp) / "dna.txt", Path(tmp) / "idx.npz"
         text.write_bytes(raw)
+        idx_sh, ck = Path(tmp) / "sharded.npz", Path(tmp) / "ck.npz"
         jobs = [start("build", "build", str(text), "-o", str(idx), "--stats"),
+                start("build_sharded", "build", str(text), "--engine",
+                      "sharded", "--devices", "1", "--checkpoint", str(ck),
+                      "--stats", "-o", str(idx_sh)),
                 start("stree", "stree", "banana"),
                 start("warmup", "warmup", "--size", str(len(raw)),
                       "--batches", "4096", "--qlens", "16")]
-        build, stree, warmup = (finish(j) for j in jobs)
+        build, build_sh, stree, warmup = (finish(j) for j in jobs)
+        with np.load(idx_sh) as z:
+            sharded_ok = sha(z["table"]) == table_sha
+        with np.load(ck) as z:
+            ck_round = (int(z["k"]), bool(z["done"]))
+        if build_sh != f"Suffixes: {len(raw)}\n" or not sharded_ok:
+            raise AssertionError(f"cli build --engine sharded printed "
+                                 f"{build_sh[:300]!r}; table equal: "
+                                 f"{sharded_ok}")
         lines = build.splitlines()
         stats = json.loads(lines[1])
         if lines[0] != f"Suffixes: {len(raw)}" or stats["engine"] != \
@@ -1516,12 +1564,340 @@ def check_cli(raw: bytes, max_lcp: int, card: str,
         raise AssertionError(f"cli search printed {len(got)} lines")
     if f"max lcp:      {max_lcp}" not in info.splitlines():
         raise AssertionError(f"cli info printed {info!r}")
-    emit("cli", card=card, step_s=steps, serve_ready_s=ready_s,
+    emit("cli", card=card, step_s=steps, sharded_checkpoint_k_done=ck_round,
+         serve_ready_s=ready_s,
          serve_s=serve_s,
          serve_warm_lines=[ln.strip() for ln in stderr[:-1]],
          warmup=warmed, build_stats=stats,
          matched=sum(int(c) > 0 for _, c, _ in got),
          phase_s=time.perf_counter() - t_phase)
+
+
+# ---- the probe-chain engines, hybrid SA-IS, the sharded build ----
+
+def sync_peak(torch, dev, reset: bool = False):
+    """Wait for ``dev``; the peak device memory in GiB since the last
+    reset (None off the card), or reset it."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+        return None
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def timed(torch, dev, fn, reps: int = 5):
+    """(result of a first call, seconds of each of ``reps`` more calls),
+    every call ended by a synchronise."""
+    out = fn()
+    sync_peak(torch, dev)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync_peak(torch, dev)
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def check_search_probe(torch, search, search2, st, queries: list[bytes],
+                       card: str) -> None:
+    """search_probe: the probe-chain engines, ``bounds_batch`` (windowed
+    binary search) and ``bounds_batch_fast`` (``probe_lut``, probe chains
+    over the first two key words, byte refine past 6 bytes), on the
+    default 4 MiB table's 262,144-query battery, every count and every
+    live start equal to the flat merge-join engine's; median seconds of 5
+    calls and queries/s of each engine, the merge-join's beside them, on
+    the same packed queries on the card."""
+    from suffix_torch.ops.padding import PAD, bucket_size
+
+    t_phase = time.perf_counter()
+    st._ensure_device()
+    dev, n = st.device, len(st)
+    q, qlens = search.pack_queries(queries)
+    m_pad = bucket_size(q.shape[1], minimum=8)
+    full = np.full((q.shape[0], m_pad), PAD, np.int32)
+    full[:, :q.shape[1]] = q
+    qd = torch.from_numpy(full).to(dev)
+    ld = torch.from_numpy(qlens).to(dev)
+    n_iters = (st._dev_text.shape[0] + 1).bit_length()
+    pk = st._pk
+    lut, lut_times = timed(torch, dev, lambda: search2.probe_lut(pk[0], n))
+    engines = {
+        "merge": lambda: search2.bounds_batch_merge(
+            st._dev_text, n, st._dev_table, n, st._pk_fence, st._pk_block,
+            qd, ld, m_pad),
+        "bounds_batch": lambda: search.bounds_batch(
+            st._dev_text, n, st._dev_table, n, qd, ld, n_iters),
+        "bounds_batch_fast": lambda: search2.bounds_batch_fast(
+            st._dev_text, n, st._dev_table, n, pk[0], pk[1], lut, qd, ld,
+            n_iters, m_pad),
+    }
+    got, rows = {}, {}
+    for name, fn in engines.items():
+        out, times = timed(torch, dev, fn)
+        got[name] = [x.cpu().numpy() for x in out]
+        med = statistics.median(times)
+        rows[name] = {"median_s": med, "queries_per_s": len(queries) / med,
+                      "times_s": times}
+    m_start, m_count = got["merge"]
+    live = m_count > 0
+    for name in ("bounds_batch", "bounds_batch_fast"):
+        start, count = got[name]
+        if not np.array_equal(count, m_count) or not np.array_equal(
+                start[live], m_start[live]):
+            raise AssertionError(f"{name} differs from the merge-join "
+                                 "bounds")
+    emit("search_probe", card=card, n=n, n_queries=len(queries),
+         m_pad=m_pad, n_iters=n_iters, live=int(live.sum()),
+         lut_median_s=statistics.median(lut_times), engines=rows,
+         phase_s=time.perf_counter() - t_phase)
+
+
+def check_sais_hybrid(sais, raw: bytes, want_sha: str, card: str) -> None:
+    """sais_hybrid: ``suffix_array_sais`` (LMS ranks from the doubling
+    engine, then the induced derivation) on the 4 MiB DNA text; its
+    table's digest equal to the default build's."""
+    t0 = time.perf_counter()
+    sa = sais.suffix_array_sais(raw)
+    build_s = time.perf_counter() - t0
+    if sha(sa) != want_sha:
+        raise AssertionError("the hybrid SA-IS table differs from the "
+                             "default build's")
+    emit("sais_hybrid", card=card, n=len(raw), build_s=build_s,
+         sha=want_sha)
+
+
+def check_collective_bins(torch, kernels, collective_bins, mesh,
+                          raw: bytes, card: str) -> int:
+    """collective_bins: ``global_bucket_layout`` over the one-rank mesh on
+    the 64 MiB DNA text, its counts, heads and tails equal to a
+    ``torch.bincount`` of the symbols on the card; the byte_histogram
+    counter, set to 0 just before the call, read just after (one launch
+    on the card). Then the resident block's layout (``bins_shard``:
+    kernel, all-reduce, cumsum) beside the plain histogram and
+    ``bincount``, medians of 5. Returns the launches of the call."""
+    t_phase = time.perf_counter()
+    dev = mesh.device
+    text = np.frombuffer(raw, np.uint8).astype(np.int32)
+    kernels.byte_histogram.launches = 0
+    t0 = time.perf_counter()
+    counts, heads, tails = collective_bins.global_bucket_layout(text, mesh)
+    layout_s = time.perf_counter() - t0
+    launches = kernels.byte_histogram.launches
+    if launches != (1 if dev.type == "cuda" else 0):
+        raise AssertionError(f"global_bucket_layout launched byte_histogram "
+                             f"{launches} times")
+    block = torch.from_numpy(text).to(dev)
+    sym = block + 1
+    want = torch.bincount(sym, minlength=collective_bins.N_SYM)
+    want = want.to(torch.int32).cpu().numpy()
+    want_tails = np.cumsum(want, dtype=np.int32)
+    for got, ref in ((counts, want), (heads, want_tails - want),
+                     (tails, want_tails)):
+        if got.dtype != np.int32 or not np.array_equal(got, ref):
+            raise AssertionError("the collective bucket layout differs from "
+                                 "torch.bincount")
+    rows = {}
+    for name, fn in (
+            ("bins_shard", lambda: collective_bins.bins_shard(block, mesh)),
+            ("plain_histogram", lambda: kernels.byte_histogram_plain(
+                sym, collective_bins.N_SYM)),
+            ("bincount", lambda: torch.bincount(
+                sym, minlength=collective_bins.N_SYM))):
+        rows[name] = statistics.median(timed(torch, dev, fn)[1])
+    emit("collective_bins", card=card, n=len(raw), world=mesh.world_size,
+         launches=launches, layout_s=layout_s, device_median_s=rows,
+         symbols_present=int((counts > 0).sum()),
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def check_sharded_build(torch, dist_build, mesh, texts, card: str) -> None:
+    """sharded_build: on the one-rank mesh, ``suffix_array_sharded`` (the
+    single-device closure) on the first text, and
+    ``suffix_array_sharded_stepped`` (the SPMD round body) on each of
+    ``texts`` = [(name, raw, want_sha)], every table's digest equal to the
+    default build's; seconds, rounds and peak memory."""
+    t_phase = time.perf_counter()
+    dev = mesh.device
+    runs = []
+
+    def one(name: str, route: str, fn, want_sha: str):
+        rounds = []
+        sync_peak(torch, dev, reset=True)
+        resident = (torch.cuda.memory_allocated(dev) / 2**30
+                    if dev.type == "cuda" else None)
+        t0 = time.perf_counter()
+        sa = fn(rounds)
+        secs = time.perf_counter() - t0
+        peak = sync_peak(torch, dev)
+        if sha(sa) != want_sha:
+            raise AssertionError(f"sharded_build {name} ({route}) differs "
+                                 "from the default build")
+        runs.append({"text": name, "route": route, "seconds": secs,
+                     "rounds": len(rounds) if route == "stepped" else None,
+                     "k": [k for k, _ in rounds], "peak_device_gib": peak,
+                     "resident_gib": resident})
+
+    name, raw, want = texts[0]
+    one(name, "one-shot", lambda _: dist_build.suffix_array_sharded(raw, mesh),
+        want)
+    for name, raw, want in texts:
+        one(name, "stepped", lambda r, raw=raw: (
+            dist_build.suffix_array_sharded_stepped(
+                raw, mesh, round_hook=lambda k, d: r.append((k, d)))), want)
+    emit("sharded_build", card=card, world=mesh.world_size, runs=runs,
+         phase_s=time.perf_counter() - t_phase)
+
+
+class StopBuild(Exception):
+    """Raised by a round hook to stop a stepped build between rounds."""
+
+
+def check_sharded_ckpt(dist_build, mesh, raw: bytes, want_sha: str,
+                       card: str, stop_after: int = 3) -> None:
+    """sharded_ckpt: the stepped build of the 4 MiB near-repeated corpus,
+    checkpointed every round; a second run whose hook raises after round
+    ``stop_after``, then a resume from its checkpoint: the same table as
+    the uninterrupted run (and the default build), the remaining rounds
+    only."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        full = []
+        t0 = time.perf_counter()
+        sa = dist_build.suffix_array_sharded_stepped(
+            raw, mesh, checkpoint_path=str(Path(tmp) / "full.npz"),
+            round_hook=lambda k, d: full.append((k, d)))
+        full_s = time.perf_counter() - t0
+        if sha(sa) != want_sha:
+            raise AssertionError("sharded_ckpt: the stepped table differs "
+                                 "from the default build's")
+        ck = str(Path(tmp) / "cut.npz")
+        seen = []
+
+        def stop(k, done):
+            seen.append(k)
+            if len(seen) == stop_after:
+                raise StopBuild
+
+        try:
+            dist_build.suffix_array_sharded_stepped(
+                raw, mesh, checkpoint_path=ck, round_hook=stop)
+            raise AssertionError("sharded_ckpt: the build ran past the hook")
+        except StopBuild:
+            pass
+        with np.load(ck) as z:
+            cut_k = int(z["k"])
+        rest = []
+        t0 = time.perf_counter()
+        sa2 = dist_build.suffix_array_sharded_stepped(
+            raw, mesh, checkpoint_path=ck, resume=True,
+            round_hook=lambda k, d: rest.append((k, d)))
+        resume_s = time.perf_counter() - t0
+    if not np.array_equal(sa2, sa) or rest != full[stop_after:]:
+        raise AssertionError(f"sharded_ckpt: resumed from k={cut_k}, rounds "
+                             f"{rest} != {full[stop_after:]}")
+    emit("sharded_ckpt", card=card, n=len(raw), rounds=len(full),
+         k=[k for k, _ in full], stopped_at_k=cut_k, full_s=full_s,
+         resume_s=resume_s, resumed_rounds=len(rest),
+         phase_s=time.perf_counter() - t_phase)
+
+
+def _multi_rank(mesh, path: str, ckpt: str) -> dict:
+    """One rank of sharded_multi: the one-shot and the stepped build of the
+    text at ``path`` and its bucket layout over ``mesh``, each timed from a
+    barrier to this rank's result; digests, and whether every rank's
+    agree."""
+    import torch
+    import torch.distributed as dist
+
+    from suffix_torch.ops import kernels
+    from suffix_torch.parallel import collective_bins, dist_build
+    from suffix_torch.utils.io import open_corpus
+
+    out, rounds = {}, []
+    dev = mesh.device
+
+    def run(name: str, fn):
+        dist.barrier()
+        sync_peak(torch, dev)
+        t0 = time.perf_counter()
+        got = fn()
+        sync_peak(torch, dev)
+        out[f"{name}_s"] = time.perf_counter() - t0
+        return got
+
+    sync_peak(torch, dev, reset=True)
+    out["one_shot"] = sha(run("one_shot", lambda: (
+        dist_build.suffix_array_sharded(path, mesh))))
+    out["stepped"] = sha(run("stepped", lambda: (
+        dist_build.suffix_array_sharded_stepped(
+            np.asarray(open_corpus(path)), mesh, checkpoint_path=ckpt,
+            round_hook=lambda k, d: rounds.append(k)))))
+    out["k"] = rounds
+    text = np.fromfile(path, np.uint8).astype(np.int32)
+    kernels.byte_histogram.launches = 0
+    layout = run("layout", lambda: (
+        collective_bins.global_bucket_layout(text, mesh)))
+    out["launches"] = kernels.byte_histogram.launches
+    out["layout"] = [a.tolist() for a in layout]
+    out["peak_device_gib"] = sync_peak(torch, dev)
+    seen = [None] * mesh.world_size
+    dist.all_gather_object(seen, (out["one_shot"], out["stepped"],
+                                  out["layout"], out["launches"]))
+    out["ranks_agree"] = all(x == seen[0] for x in seen)
+    return out
+
+
+def check_sharded_multi(torch, launch, raw: bytes, want_sha: str,
+                        card: str) -> None:
+    """sharded_multi: where the machine has two or more cards, worlds of 2
+    and (with four cards) 4 NCCL ranks, one process a card
+    (``launch.spawn``), on the 64 MiB DNA text: the one-shot and the
+    stepped build, each digest the default build's, and the bucket
+    layout, equal to ``np.bincount`` with one byte_histogram launch a
+    rank; seconds of each inside the ranks and of the whole spawn. With
+    one card it is not run."""
+    import tempfile
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit("sharded_multi", card=card, run=False, cards=count,
+             reason="one card: NCCL puts one rank on a card, so a "
+                    "multi-rank exchange needs two or more")
+        return
+    t_phase = time.perf_counter()
+    sym = np.frombuffer(raw, np.uint8).astype(np.int64) + 1
+    counts = np.bincount(sym, minlength=258).astype(np.int32)
+    tails = np.cumsum(counts, dtype=np.int32)
+    want_layout = [counts.tolist(), (tails - counts).tolist(), tails.tolist()]
+    torch.cuda.empty_cache()
+    worlds = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "dna64.txt"
+        path.write_bytes(raw)
+        for world in (2, 4)[:1 + (count >= 4)]:
+            t0 = time.perf_counter()
+            got = launch.spawn(_multi_rank, world, str(path),
+                               str(Path(tmp) / f"ck{world}.npz"))
+            spawn_s = time.perf_counter() - t0
+            if (got["one_shot"] != want_sha or got["stepped"] != want_sha
+                    or got["layout"] != want_layout or got["launches"] != 1
+                    or not got["ranks_agree"]):
+                raise AssertionError(f"sharded_multi at {world} ranks: "
+                                     f"tables {got['one_shot'][:12]} / "
+                                     f"{got['stepped'][:12]}, launches "
+                                     f"{got['launches']}, ranks agree "
+                                     f"{got['ranks_agree']}")
+            worlds.append({"world": world, "spawn_s": spawn_s,
+                           **{k: v for k, v in got.items()
+                              if k not in ("layout", "one_shot", "stepped")}})
+    emit("sharded_multi", card=card, run=True, cards=count, n=len(raw),
+         worlds=worlds, phase_s=time.perf_counter() - t_phase)
 
 
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1538,6 +1914,8 @@ def kernel_entry(name: str, source: str, replaces: str, r: dict,
 
 
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1548,8 +1926,10 @@ def main() -> int:
     from suffix_torch import SuffixTable, native
     from suffix_torch.device import resolve_device
     from suffix_torch import serve
-    from suffix_torch.ops import kernels, probes, sais, search2
+    from suffix_torch.ops import kernels, probes, sais, search, search2
     from suffix_torch.ops import lcp as lcp_ops
+    from suffix_torch.parallel import collective_bins, dist_build, launch
+    from suffix_torch.parallel.mesh import destroy_group, make_mesh
     from suffix_torch.utils import textgen
     from suffix_torch.utils.verify import verify_suffix_array
 
@@ -1609,8 +1989,11 @@ def main() -> int:
     # ---- the main path: default build, queries, LCP ---------------------
     st_d = build_device(torch, SuffixTable, verify_suffix_array, raw,
                         "build_4m_device")
-    check_queries(st_d, raw, np.random.default_rng(SEED + 2),
-                  phase="queries_device")
+    drawn14_d = check_queries(st_d, raw, np.random.default_rng(SEED + 2),
+                              phase="queries_device")
+    sha_4m = sha(st_d.table())
+    check_search_probe(torch, search, search2, st_d, drawn14_d, card)
+    check_sais_hybrid(sais, raw, sha_4m, card)
     t0 = time.perf_counter()
     lcp = st_d.lcp_lens()
     lcp_s = time.perf_counter() - t0
@@ -1681,23 +2064,43 @@ def main() -> int:
                     card)
     check_trees(torch, SuffixTable, [("dna_4m", st_d), ("nearrep_4m", st_near)],
                 "cuda", card)
+    sha_near = sha(st_near.table())
     del st_near
     check_lcp_kasai(lcp_ops, native, st128, text128, "lcp_128m_text", card)
-    del st128, text128
+    sha_128m = sha(st128.table())
+    del st128
     check_hybrid(native, search2, st_d, raw, card)
     check_verify_device(SuffixTable, [("dna_4m", raw, st_d.table()),
                                       ("dna_64m", raw64, tab64)], card)
-    del st_d, raw64, tab64
-    check_cli(raw, max_lcp_4m, card)
+    del st_d
+    gc.collect()  # tables freed by reference cycles leave the card now
+
+    # ---- the sharded build: a one-rank NCCL mesh in this process --------
+    mesh = make_mesh(1)
+    bins_launches = check_collective_bins(torch, kernels, collective_bins,
+                                          mesh, raw64, card)
+    sha_64m = sha(tab64)
+    del tab64
+    check_sharded_build(torch, dist_build, mesh,
+                        [("dna_64m", raw64, sha_64m),
+                         ("text_128m", text128, sha_128m)], card)
+    del text128
+    check_sharded_ckpt(dist_build, mesh, nearrep, sha_near, card)
+    destroy_group()
+    check_sharded_multi(torch, launch, raw64, sha_64m, card)
+    del raw64
+    check_cli(raw, max_lcp_4m, card, sha_4m)
 
     print(json.dumps({"kernels": [
         kernel_entry("byte_histogram", "suffix_torch/csrc/histogram.cu",
                      "suffix_tpu/ops/pallas_kernels.py:51",
-                     {**hist, "launches": launches},
+                     {**hist, "launches": launches, "callers": {
+                         "sais_build_4m_and_queries": launches,
+                         "collective_bins_64m": bins_launches}},
                      ("input", "warm_ms", "read_flush_ms", "library_call",
                       "library_read_flush_ms", "bincount_ms",
                       "torch_sum1_ms", "torch_sum1_read_flush_ms",
-                      "device_ops_per_call")),
+                      "device_ops_per_call", "callers")),
         kernel_entry("copy_blocks", "suffix_torch/csrc/probes.cu",
                      "scripts/round3_study.py:114", probe["copy_blocks"]),
         kernel_entry("copy5_blocks", "suffix_torch/csrc/probes.cu",

@@ -14,6 +14,9 @@ Plus ``search`` (batched queries against a file or a saved index),
 ``serve`` (the JSONL server of serve.py), ``info`` and ``warmup``.
 ``--platform`` picks the torch device: ``cuda`` (the default, which
 raises without a card) or ``cpu``; env ``SUFFIX_TORCH_PLATFORM``.
+``build --engine sharded`` and ``warmup --devices N`` run over a process
+group: the caller's, or ``N`` ranks started for the command
+(``parallel/launch.py``); rank 0 writes the output.
 """
 
 from __future__ import annotations
@@ -41,7 +44,16 @@ def _cmd_build(args) -> int:
         return 1
     t0 = time.perf_counter()
     if args.engine == "sharded":
-        raise _not_ported("build --engine sharded")
+        from suffix_torch.parallel import launch
+        from suffix_torch.parallel.dist_build import build_table
+
+        # Read from the file's mmap on every rank, block by block.
+        sa = launch.run(build_table, args.devices, args.file,
+                        args.checkpoint, args.resume, args.index_dtype,
+                        device=args.device)
+        if not launch.is_lead():
+            return 0
+        st = SuffixTable.from_parts(data, sa, device=args.device)
     elif args.engine == "naive":
         st = SuffixTable.new_naive(data, device=args.device)
     else:
@@ -184,17 +196,18 @@ def _cmd_info(args) -> int:
 
 
 def _cmd_warmup(args) -> int:
-    from suffix_torch.utils.warmup import warm
+    from suffix_torch.utils.warmup import warm, warm_sharded
 
     if args.devices > 1:
-        raise _not_ported("warmup --devices > 1")
-    timings = warm(
-        args.size,
-        query_batches=tuple(int(x) for x in args.batches.split(",")),
-        query_lens=tuple(int(x) for x in args.qlens.split(",")),
-        lcp=not args.no_lcp,
-        device=args.device,
-    )
+        timings = warm_sharded(args.size, args.devices, device=args.device)
+    else:
+        timings = warm(
+            args.size,
+            query_batches=tuple(int(x) for x in args.batches.split(",")),
+            query_lens=tuple(int(x) for x in args.qlens.split(",")),
+            lcp=not args.no_lcp,
+            device=args.device,
+        )
     total = sum(dt for _, dt in timings)
     print(f"warmed {len(timings)} programs in {total:.1f}s")
     return 0
@@ -227,9 +240,11 @@ def main(argv=None) -> int:
                    choices=["auto", "device", "sais", "native", "naive",
                             "sharded"],
                    help="construction engine (auto = native CPU for small "
-                        "files, device otherwise; sharded: not ported yet)")
+                        "files, device otherwise; sharded = over --devices "
+                        "ranks)")
     b.add_argument("--devices", type=int, default=None,
-                   help="mesh size for --engine sharded (default: all)")
+                   help="ranks for --engine sharded (default: one a card, "
+                        "or one on the CPU)")
     b.add_argument("--checkpoint",
                    help="sharded: persist per-round state for elastic restart")
     b.add_argument("--resume", action="store_true",
@@ -292,7 +307,7 @@ def main(argv=None) -> int:
     w.add_argument("--no-lcp", action="store_true")
     w.add_argument("--devices", type=int, default=1,
                    help="warm the sharded build for this mesh size instead "
-                        "of the single-card pipeline (not ported yet)")
+                        "of the single-card pipeline")
     w.set_defaults(fn=_cmd_warmup)
 
     args = p.parse_args(argv)

@@ -21,7 +21,6 @@ from typing import Sequence
 import numpy as np
 
 from suffix_torch.table import SuffixTable, _as_bytes
-from suffix_torch.utils.config import SHARDED_TODO
 
 
 class MultiDocIndex:
@@ -32,9 +31,10 @@ class MultiDocIndex:
     def __init__(self, docs: Sequence, *, build: bool = True, mesh=None,
                  device=None):
         """Index ``docs`` (str or bytes each) on ``device`` (``None`` =
-        CUDA). ``mesh`` (the sharded build) is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError(f"MultiDocIndex(mesh=...): {SHARDED_TODO}")
+        CUDA). With ``mesh`` (``parallel/mesh.py``; every rank of it
+        calls this) the table is built by the sharded build, for corpora
+        larger than one card, and lives on ``device`` or, by default, on
+        the rank's device."""
         self._was_str = [isinstance(d, str) for d in docs]
         self._docs = [_as_bytes(d)[0] for d in docs]
         for d in self._docs:
@@ -50,7 +50,15 @@ class MultiDocIndex:
             starts.append(starts[-1] + len(d) + 1)
         self._starts = np.asarray(starts, dtype=np.int64)
         self._ends = self._starts + np.asarray([len(d) for d in self._docs], dtype=np.int64)
-        self._st = SuffixTable.new(joined, device=device) if build else None
+        if build and mesh is not None:
+            from suffix_torch.parallel.dist_build import suffix_array_sharded
+
+            self._st = SuffixTable.from_parts(
+                joined, suffix_array_sharded(joined, mesh),
+                device=mesh.device if device is None else device)
+        else:
+            self._st = (SuffixTable.new(joined, device=device) if build
+                        else None)
         self._joined = joined
 
     @property

@@ -1,6 +1,9 @@
 """SA-IS as sample + stratified induced derivation, in PyTorch.
 
-Port of ``suffix_tpu/ops/sais.py`` (the recursive parity engine). The
+Port of ``suffix_tpu/ops/sais.py``: the recursive pipeline
+(``suffix_array_sais_recursive``, what ``engine="sais"`` runs) and the
+hybrid one (``suffix_array_sais``), whose LMS sample order comes from the
+doubling engine instead of the recursion. The
 algorithm is the same: decompose every suffix as c^m·γ (m = its maximal
 same-character run, γ = the suffix after the run). L-suffixes order
 inside their bucket by (m ascending, order of γ), S-suffixes by
@@ -216,6 +219,50 @@ def _derive_sa(text: torch.Tensor, lms_class_rank: torch.Tensor,
     return sa
 
 
+def _lms_class_rank_from_doubling(text: torch.Tensor) -> torch.Tensor:
+    """LMS class ranks from the doubling engine's suffix array (the
+    hybrid pipeline's stand-in for the recursion): each LMS position's
+    rank among the LMS suffixes, scattered to its position."""
+    from suffix_torch.ops.prefix_doubling import _suffix_array_padded
+
+    _, is_lms = classify_types(text)
+    sa = _suffix_array_padded(text).long()
+    flag = is_lms[sa].to(I32)
+    out = torch.zeros(text.shape[0], dtype=I32, device=text.device)
+    out[sa] = _cumsum32(flag) - flag
+    return out
+
+
+def _as_u8(data) -> np.ndarray:
+    return (np.frombuffer(bytes(data), dtype=np.uint8)
+            if isinstance(data, (bytes, bytearray))
+            else np.asarray(data, dtype=np.uint8))
+
+
+def _padded_on(arr: np.ndarray, device) -> tuple[torch.Tensor, int]:
+    """(PAD-padded int32 text on ``device``, its power-of-two size)."""
+    n = int(arr.shape[0])
+    n_pad = bucket_size(n)
+    padded = np.full((n_pad,), PAD, dtype=np.int32)
+    padded[:n] = arr
+    return torch.from_numpy(padded).to(device), n_pad
+
+
+def suffix_array_sais(data: bytes | np.ndarray, device=None) -> np.ndarray:
+    """Suffix array (uint32 offsets) via the hybrid SA-IS pipeline on
+    ``device`` (``None`` = CUDA): the LMS sample order from the doubling
+    engine, then the stratified induced derivation."""
+    dev = resolve_device(device)
+    arr = _as_u8(data)
+    n = int(arr.shape[0])
+    if n == 0:
+        return np.empty((0,), dtype=np.uint32)
+    t, n_pad = _padded_on(arr, dev)
+    lms_rank = _lms_class_rank_from_doubling(t)
+    sa_full = _derive_sa(t, lms_rank).cpu().numpy()
+    return sa_full[n_pad - n:].astype(np.uint32)
+
+
 # ---------------------------------------------------------------------------
 # SA-IS recursion: LMS-substring sort -> naming -> reduced string
 # ---------------------------------------------------------------------------
@@ -421,18 +468,11 @@ def suffix_array_sais_recursive(data: bytes | np.ndarray,
     taken: ``l_rounds``, ``s_rounds``, ``substring_rounds``, summed over
     levels."""
     dev = resolve_device(device)
-    arr = (
-        np.frombuffer(bytes(data), dtype=np.uint8)
-        if isinstance(data, (bytes, bytearray))
-        else np.asarray(data, dtype=np.uint8)
-    )
+    arr = _as_u8(data)
     n = int(arr.shape[0])
     if n == 0:
         return np.empty((0,), dtype=np.uint32)
-    n_pad = bucket_size(n)
-    padded = np.full((n_pad,), PAD, dtype=np.int32)
-    padded[:n] = arr
-    t = torch.from_numpy(padded).to(dev)
+    t, n_pad = _padded_on(arr, dev)
     w_pad = bucket_size(max(n_pad // 2, 8))
     lms_rank = _lms_rank_via_reduction(t, w_pad, stats=stats)
     sa_full = _derive_sa(t, lms_rank, stats=stats).cpu().numpy()

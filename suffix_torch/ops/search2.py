@@ -32,8 +32,12 @@ The engine:
    only patterns past their 42-byte coverage, from that offset on.
 
 Where JAX sorts a lane selector into static buckets, the port compacts
-the long lanes with ``nonzero`` (exact counts). Not ported yet: the probe
-engine (``bounds_batch_fast``) and its LUT.
+the long lanes with ``nonzero`` (exact counts).
+
+The probe-chain engine (``bounds_batch_fast``, with the 2-symbol LUT of
+``probe_lut``) is kept, as in JAX, for cross-checking: a LUT jump, then a
+fused lower/upper binary search over the first two key words, and the
+byte refine past 6 bytes. No user path calls it.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import warnings
 
 import torch
 
-from suffix_torch.ops.search import _cmp_suffix_query
+from suffix_torch.ops.search import _cmp_suffix_query, _table_at
 from suffix_torch.ops.sort import lexsort_perm
 
 SYM_BITS = 9
@@ -50,6 +54,7 @@ SYMS_PER_WORD = 3
 KEY_WORDS = 6
 KEY_SYMS = KEY_WORDS * SYMS_PER_WORD  # 18
 EXT_KEY_WORDS = 12  # on-demand wide keys: exact merge join to 36 bytes
+LUT_SIDE = 257  # symbol alphabet: 0 (end) + 256 byte values
 WORD_MASK = (1 << (SYM_BITS * SYMS_PER_WORD)) - 1  # 27 bits
 PAD_KEY = 0x7FFFFFFF  # above every real key word
 I32 = torch.int32
@@ -242,11 +247,9 @@ def _refine(text: torch.Tensor, n_text: int, table: torch.Tensor,
     through ``sufi_off`` bytes (the deep index), pass the query tails
     (queries[:, sufi_off:], qlens - sufi_off) and each probe compares
     suffix(sufi + sufi_off) with the tail."""
-    n_tab = table.shape[0]
 
     def sufi_at(mid):
-        got = table[torch.clamp(mid, 0, n_tab - 1).long()]
-        return torch.where(mid < n_tab, got, 0).to(I32) + sufi_off
+        return _table_at(table, mid) + sufi_off
 
     ll, lr = start.clone(), end.clone()
     ul, ur = start.clone(), end.clone()
@@ -468,4 +471,77 @@ def bounds_batch_merge_deep(text: torch.Tensor, n_text: int,
                     e2 = e2.index_put((lane2,), r_e)
             start = start.index_put((lane,), s2)
             end = end.index_put((lane,), e2)
+    return _start_count(start, end, qlens, n_table)
+
+
+# ---------------------------------------------------------------------------
+# Probe-chain engine (kept for cross-checks)
+# ---------------------------------------------------------------------------
+
+def probe_lut(pk0: torch.Tensor, n_table: int) -> torch.Tensor:
+    """int32 ``(LUT_SIDE**2 + 1,)``: entry v is the first rank whose two
+    leading symbols s0, s1 have ``s0 * LUT_SIDE + s1 >= v`` (rows past
+    ``n_table`` count as LUT_SIDE**2). ``pk0`` is key word 0 in rank
+    order: the JAX index build's fourth value."""
+    n_pad = pk0.shape[0]
+    s0 = pk0 >> (2 * SYM_BITS)
+    s1 = (pk0 >> SYM_BITS) & (2**SYM_BITS - 1)
+    real = torch.arange(n_pad, device=pk0.device) < n_table
+    v = torch.where(real, s0 * LUT_SIDE + s1, LUT_SIDE * LUT_SIDE).to(I32)
+    targets = torch.arange(LUT_SIDE * LUT_SIDE + 1, dtype=I32,
+                           device=pk0.device)
+    return torch.searchsorted(v, targets, side="left").to(I32)
+
+
+def _probe_bounds(pk1, pk2, lut, n_table: int, queries, qlens,
+                  n_iters: int):
+    """Fused (lower, upper) probe search over the first two key words
+    from the LUT's bucket, every row in lockstep. Exact for qlen <= 6;
+    longer queries get their 6-symbol prefix-equal range."""
+    (qk1, qk2), hi = _batch_query_keys(queries, qlens, 2)
+    # A word's live-symbol mask: the bits that max-filling left alone.
+    m1, m2 = (WORD_MASK ^ (h ^ q) for q, h in zip((qk1, qk2), hi))
+    s0 = (qk1 >> 18) & 0x1FF
+    s1 = (qk1 >> 9) & 0x1FF
+    two = qlens >= 2
+    v_lo = torch.where(two, s0 * LUT_SIDE + s1, s0 * LUT_SIDE)
+    v_hi = torch.where(two, v_lo + 1, (s0 + 1) * LUT_SIDE)
+    lo0 = torch.clamp(lut[v_lo.long()], max=n_table)
+    hi0 = torch.clamp(lut[v_hi.long()], max=n_table)
+    ll, lr, ul, ur = lo0, hi0, lo0, hi0
+    for _ in range(n_iters):
+        lmid = (ll + lr) // 2
+        umid = (ul + ur) // 2
+        la1 = _table_at(pk1, lmid) & m1
+        la2 = _table_at(pk2, lmid) & m2
+        ua1 = _table_at(pk1, umid) & m1
+        ua2 = _table_at(pk2, umid) & m2
+        l_lt = (la1 < qk1) | ((la1 == qk1) & (la2 < qk2))
+        u_gt = (ua1 > qk1) | ((ua1 == qk1) & (ua2 > qk2))
+        l_act = ll < lr
+        u_act = ul < ur
+        ll = torch.where(l_act & l_lt, lmid + 1, ll)
+        lr = torch.where(l_act & ~l_lt, lmid, lr)
+        ul = torch.where(u_act & ~u_gt, umid + 1, ul)
+        ur = torch.where(u_act & u_gt, umid, ur)
+    return ll, ul
+
+
+def bounds_batch_fast(text: torch.Tensor, n_text: int, table: torch.Tensor,
+                      n_table: int, pk1: torch.Tensor, pk2: torch.Tensor,
+                      lut: torch.Tensor, queries: torch.Tensor,
+                      qlens: torch.Tensor, n_iters: int, max_qlen: int):
+    """(start, count) per query, int32, via the LUT and probe chains over
+    the packed keys; queries longer than 6 bytes (compacted) finish
+    through the byte refine on their 6-symbol range."""
+    start, end = _probe_bounds(pk1, pk2, lut, n_table, queries, qlens,
+                               n_iters)
+    if max_qlen > 6:
+        long_q = torch.nonzero(qlens > 6).flatten()
+        if long_q.numel():
+            r_start, r_end = _refine(text, n_text, table, queries[long_q],
+                                     qlens[long_q], start[long_q],
+                                     end[long_q])
+            start = start.index_put((long_q,), r_start)
+            end = end.index_put((long_q,), r_end)
     return _start_count(start, end, qlens, n_table)

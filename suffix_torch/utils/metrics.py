@@ -8,8 +8,8 @@ recursion_depth, ...) appear when the engine that ran produces them.
     SuffixTable.new(text, collect_stats=True).build_stats
 
 ``device`` is the torch device the build runs on (``None`` = CUDA) and
-names the card in ``stats["device"]``. The JAX package's ``"sharded"``
-engine is not ported (ROADMAP.md Queue 1 item 15).
+names the card in ``stats["device"]``; a sharded build runs on its
+mesh's device.
 """
 
 from __future__ import annotations
@@ -35,21 +35,20 @@ def _device_name(dev: torch.device) -> str:
 
 
 def build_stats(data, engine: str = "device", index_dtype: str = "u32",
-                padding: str = "pow2", device=None):
+                padding: str = "pow2", device=None, mesh=None):
     """(suffix array, stats dict) for one instrumented build on ``device``.
 
     ``engine``: "device" (prefix doubling with its routes: periodic,
     patched, adaptive, two-phase, classic), "native" (C++ SA-IS on the
-    host) or "sais" (the recursive SA-IS pipeline on the device).
+    host), "sais" (the recursive SA-IS pipeline on the device) or
+    "sharded" (block-bitonic SPMD over ``mesh``, whose ranks all call
+    this; ``None`` = this process alone, a one-rank mesh on ``device``).
     """
     from suffix_torch.ops.padding import bucket_size
 
-    if engine == "sharded":
-        raise ValueError("engine='sharded' is not ported to suffix_torch; "
-                         "see ROADMAP.md Queue 1 item 15")
-    if engine not in ("device", "native", "sais"):
+    if engine not in ("device", "native", "sais", "sharded"):
         raise ValueError(f"unknown engine: {engine!r}")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     arr = (np.frombuffer(bytes(data), np.uint8)
            if isinstance(data, (bytes, bytearray))
            else np.asarray(data, np.uint8))
@@ -72,6 +71,22 @@ def build_stats(data, engine: str = "device", index_dtype: str = "u32",
         sa = native.sais(arr)
         dt = time.perf_counter() - t0
         stats.update(engine="native-sais", engine_family="native", n_pad=n)
+    elif engine == "sharded":
+        from suffix_torch.parallel import launch
+
+        sa, dt, d = (_timed_sharded(mesh, arr, index_dtype)
+                     if mesh is not None else launch.run(_timed_sharded, 1, arr, index_dtype,
+                                     device=dev))
+        logd = max(1, d).bit_length() - 1
+        stats.update(
+            engine=f"sharded(d={d})", engine_family="sharded", n_pad=n,
+            devices=d,
+            collective={
+                # The analytic per-round volume: bitonic merge-split
+                # stages and halo window shifts, bytes a rank.
+                "bitonic_stages_per_round": logd * (logd + 1) // 2,
+                "bytes_per_device_per_stage": 3 * 8 * (n // max(d, 1)),
+            })
     else:
         from suffix_torch.ops.sais import suffix_array_sais_recursive
 
@@ -85,6 +100,15 @@ def build_stats(data, engine: str = "device", index_dtype: str = "u32",
     stats.update(elapsed_s=round(dt, 6),
                  bytes_per_s=round(n / max(dt, 1e-12), 1))
     return np.asarray(sa), stats
+
+
+def _timed_sharded(mesh, arr: np.ndarray, index_dtype: str):
+    """(table, seconds, ranks) of one sharded build on ``mesh``."""
+    from suffix_torch.parallel.dist_build import suffix_array_sharded
+
+    t0 = time.perf_counter()
+    sa = suffix_array_sharded(arr, mesh, index_dtype=index_dtype)
+    return sa, time.perf_counter() - t0, mesh.world_size
 
 
 def stats_json(stats: dict) -> str:

@@ -7,7 +7,8 @@ caching allocator's growth to the program's peak. ``warm`` runs the JAX
 package's program list once at the same power-of-two buckets
 (ops/padding.py): the build, the two-phase and adaptive builds, the query
 index, the query batches and the LCP, so a serving process meets its
-first request with all of that in place.
+first request with all of that in place; ``warm_sharded`` does the same
+for the sharded build's programs on every rank.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ import numpy as np
 import torch
 
 from suffix_torch.device import resolve_device, sync
-from suffix_torch.utils.config import SHARDED_TODO
 
 
 def warm(n_bytes: int,
@@ -120,7 +120,49 @@ def warm(n_bytes: int,
     return timings
 
 
-def warm_sharded(n_bytes: int, n_devices: int,
-                 verbose: bool = True) -> list[tuple[str, float]]:
-    """Warm the sharded build's programs: not ported yet."""
-    raise NotImplementedError(f"warm_sharded: {SHARDED_TODO}")
+def warm_sharded(n_bytes: int, n_devices: int, verbose: bool = True,
+                 device=None) -> list[tuple[str, float]]:
+    """Run the sharded build's programs once for a corpus of ``n_bytes``
+    over ``n_devices`` ranks on ``device``'s type (``None`` = CUDA): the
+    one-shot SPMD build, the stepped build's initial rank and one round
+    step, at the block length the sharded build itself uses
+    (``dist_build._local_bucket``). Returns rank 0's [(program,
+    seconds)], which the lead process prints."""
+    from suffix_torch.parallel import launch
+
+    timings = launch.run(_warm_sharded_rank, n_devices, n_bytes,
+                         device=device)
+    if verbose and timings is not None and launch.is_lead():
+        for name, dt in timings:
+            print(f"  warmed {name}: {dt:.1f}s", flush=True)
+    return timings
+
+
+def _warm_sharded_rank(mesh, n_bytes: int):
+    from suffix_torch.ops.padding import PAD
+    from suffix_torch.parallel import dist_build as db
+
+    timings: list[tuple[str, float]] = []
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(mesh.device)
+        dt = time.perf_counter() - t0
+        timings.append((name, dt))
+        return out
+
+    n_dev = mesh.world_size
+    n_local = db._local_bucket(n_bytes, n_dev)
+    rng = np.random.default_rng(0)
+    padded = np.full((n_local * n_dev,), PAD, np.int32)
+    padded[:n_bytes] = rng.integers(0, 256, size=n_bytes, dtype=np.uint8)
+    lo = mesh.rank * n_local
+    block = torch.from_numpy(padded[lo:lo + n_local].copy()).to(mesh.device)
+    tag = f"L={n_local} D={n_dev}"
+    step(f"sharded build {tag}", lambda: db._dist_build(block, n_local, mesh))
+    rank0 = step(f"sharded initial rank {tag}",
+                 lambda: db._packed_initial_rank(block, mesh))
+    step(f"sharded round step {tag}",
+         lambda: db._round_body(rank0, 3, n_local, mesh))
+    return timings

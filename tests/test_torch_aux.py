@@ -1,9 +1,12 @@
 """The port's auxiliary modules against the JAX package's, mirroring
 ``tests/test_aux.py``: ``BuildConfig`` / ``build_index``
 (``suffix_torch/utils/config.py``), ``Profile``, ``timed_build`` and
-``device_trace`` (``utils/profiling.py``) on the CPU, ``warm``
-(``utils/warmup.py``) at a small size, and the examples
-(``suffix_torch/examples/``) run on the CPU. Tolerance: exact equality.
+``device_trace`` (``utils/profiling.py``) on the CPU, ``warm`` and
+``warm_sharded`` (``utils/warmup.py``) at a small size, and the examples
+(``suffix_torch/examples/``) run on the CPU. The sharded build of
+``BuildConfig(sharded=True)`` and ``warm_sharded`` run over 4 gloo ranks
+started for the call (``parallel/launch.py``). Tolerance: exact
+equality.
 """
 
 import importlib
@@ -54,10 +57,19 @@ def test_config_fields_match_jax(jax_config):
         DEFAULT_BUILD.engine = "sais"
 
 
-def test_config_sharded_raises():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build_index("mississippi", BuildConfig(sharded=True, n_devices=4),
-                    device="cpu")
+def test_config_sharded_raises(jax_config, tmp_path):
+    # Once a stub that raised; now JAX's test_config_sharded, stepped with
+    # a checkpoint over 4 ranks (one file a rank).
+    want = [10, 7, 4, 1, 0, 9, 8, 6, 3, 5, 2]
+    ref = jax_config.build_index("mississippi", jax_config.BuildConfig(
+        sharded=True, n_devices=4, checkpoint_path=str(tmp_path / "j.npz")))
+    st = build_index("mississippi", BuildConfig(
+        sharded=True, n_devices=4, checkpoint_path=str(tmp_path / "ck.npz")),
+        device="cpu")
+    assert st.table().tolist() == ref.table().tolist() == want
+    assert st.text() == ref.text() == "mississippi"
+    assert sorted(p.name for p in tmp_path.glob("ck.npz.p?")) == [
+        f"ck.npz.p{r}" for r in range(4)]
 
 
 def test_profile_report():
@@ -123,8 +135,15 @@ def test_warm_small(capsys):
     assert [n for n, _ in warm(100, query_batches=(), lcp=False,
                                 verbose=False, device="cpu")] == [
         "build n=128 (init_words=4)", "query_index n=128"]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        warm_sharded(1000, 4)
+    # warm_sharded over 4 ranks: JAX's program names at the same bucket.
+    pytest.importorskip("jax")
+    from suffix_tpu.utils.warmup import warm_sharded as jax_warm_sharded
+
+    got = warm_sharded(1000, 4, verbose=False, device="cpu")
+    assert [n for n, _ in got] == [
+        n for n, _ in jax_warm_sharded(1000, 4, verbose=False)] == [
+        "sharded build L=256 D=4", "sharded initial rank L=256 D=4",
+        "sharded round step L=256 D=4"]
 
 
 @pytest.mark.parametrize("name", ["basic", "anatomy", "batched_search",

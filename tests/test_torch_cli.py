@@ -3,13 +3,16 @@
 ``build --stats``, ``search``, ``stree``, ``stree --array`` and ``info``
 print what ``suffix_tpu.cli.main`` prints for the same argv (a stats
 line's timings and device name aside); saved indexes cross-load both
-ways, ``doc_starts`` included; ``warmup`` runs; the sharded options and
-a missing card raise; and one subprocess runs ``python -m suffix_torch``.
+ways, ``doc_starts`` included; ``warmup`` runs; the sharded build and
+sharded warmup (one rank in process, two started for the command) print
+what JAX's do and save the same index; ``search --sharded`` and a
+missing card raise; and one subprocess runs ``python -m suffix_torch``.
 Tolerance: exact equality.
 """
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -156,9 +159,40 @@ def test_warmup_names_match_jax(jax_cli, capsys):
     ["search", "--file", FIXTURE, "--sharded", "AGCTT"],
     ["warmup", "--size", "500", "--devices", "2"],
 ])
-def test_sharded_options_raise(argv):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        main(["--platform", "cpu", *argv])
+def test_sharded_options_raise(jax_cli, capsys, tmp_path, monkeypatch, argv):
+    """The sharded build and warmup (stubs until the sharded build was
+    ported) print what JAX's CLI prints and save the same index; sharded
+    serving (``search --sharded``, ROADMAP item 15) still raises."""
+    if argv[0] == "search":
+        with pytest.raises(NotImplementedError, match="item 15"):
+            main(["--platform", "cpu", *argv])
+        return
+    jax_main, _ = jax_cli
+    monkeypatch.chdir(tmp_path)  # the relative checkpoint path lands here
+    out = argv + (["-o", "{}.npz"] if argv[0] == "build" else [])
+    outs = []
+    for fn, name in ((main, "port"), (jax_main, "jax")):
+        args = [a.format(name) for a in out]
+        if "ck.npz" in args:
+            args[args.index("ck.npz")] = f"ck_{name}.npz"
+        text = run(fn, ["--platform", "cpu", *args], capsys)
+        outs.append(re.sub(r"\d+\.\d+s", "Xs", text))
+    assert outs[0] == outs[1]
+    if argv[0] == "warmup":
+        assert outs[0].splitlines()[-1] == "warmed 3 programs in Xs"
+        return
+    assert outs[0] == "Suffixes: 10001\n"
+    with np.load("port.npz") as zp, np.load("jax.npz") as zj:
+        assert sorted(zp.files) == sorted(zj.files)
+        for key in zj.files:
+            assert np.array_equal(zp[key], zj[key]), key
+    if "--checkpoint" in argv:
+        with np.load("ck_jax.npz") as zj:
+            last = int(zj["k"]), bool(zj["done"])
+        for r in range(2):  # one file a rank, at JAX's last round
+            with np.load(f"ck_port.npz.p{r}") as z:
+                assert (int(z["k"]), bool(z["done"])) == last
+                assert z["los"].tolist() == [r * 8192]
 
 
 def test_default_platform_needs_a_card(monkeypatch):

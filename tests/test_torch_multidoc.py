@@ -1,9 +1,10 @@
 """The port's ``MultiDocIndex`` (``suffix_torch/multidoc.py``) against the
 JAX package's (``suffix_tpu/multidoc.py``), the cases of
-``tests/test_multidoc.py`` (reference: README.md:60-74) but the mesh one:
-the same (doc, offset) pairs in the same order, the same document
-lookups, the same NUL rejections. ``mesh=`` raises until the sharded
-build is ported. Tolerance: exact equality.
+``tests/test_multidoc.py`` (reference: README.md:60-74): the same
+(doc, offset) pairs in the same order, the same document lookups, the
+same NUL rejections; ``mesh=`` builds over 8 gloo ranks started for the
+test (``parallel/launch.py``), against JAX's ``make_mesh(8)`` index.
+Tolerance: exact equality.
 """
 
 import numpy as np
@@ -15,6 +16,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from suffix_torch import MultiDocIndex  # noqa: E402
+from suffix_torch.parallel import launch  # noqa: E402
+
+MESH_DOCS = ["the quick fox", "a lazy dog", "quick quick"]
+MESH_QUERIES = ["quick", "dog", "zebra", "q"]
 
 CORPORA = [
     (["the quick fox", "a lazy dog", "quick quick"],
@@ -82,6 +87,20 @@ def test_unbuilt_index():
     assert idx.suffix_table is None and idx.num_docs == 2
 
 
-def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        MultiDocIndex(["a", "b"], mesh=object(), device="cpu")
+def _mesh_index(mesh):
+    idx = MultiDocIndex(MESH_DOCS, mesh=mesh, device="cpu")
+    return ([idx.positions(q) for q in MESH_QUERIES],
+            idx.suffix_table.table(), str(idx.suffix_table.device))
+
+
+def test_mesh_raises(JIndex):
+    # Once a stub that raised; now test_multidoc.py's sharded-mesh case.
+    from suffix_tpu.parallel.mesh import make_mesh
+
+    positions, table, device = launch.spawn(_mesh_index, 8, device="cpu")
+    ref = JIndex(MESH_DOCS, mesh=make_mesh(8))
+    assert positions == [ref.positions(q) for q in MESH_QUERIES]
+    assert np.array_equal(table, ref.suffix_table.table())
+    assert positions == [MultiDocIndex(MESH_DOCS, device="cpu").positions(q)
+                         for q in MESH_QUERIES]
+    assert device == "cpu"

@@ -3,8 +3,11 @@
 Components (classify_types, run_decompose, bucket_layout, the inner
 recursion level) are held against their ``suffix_tpu.ops.sais``
 counterparts on the same padded inputs; the whole recursive engine
-against the oracle, the golden SA digests and JAX on ``dna_10k``.
-Tolerance: exact equality (every array is integer).
+against the oracle, the golden SA digests and JAX on ``dna_10k``; the
+hybrid ``suffix_array_sais`` (LMS ranks from the doubling engine) and
+its ``_lms_class_rank_from_doubling`` against JAX's and the oracle, the
+cases of ``tests/test_sais.py``. Tolerance: exact equality (every array
+is integer).
 """
 
 import hashlib
@@ -155,3 +158,55 @@ def test_matches_jax_on_dna_10k(dna_10k):
 
 def test_empty_text():
     assert _sa(b"").shape == (0,)
+
+
+# ---- the hybrid pipeline (tests/test_sais.py) ----
+
+def _hybrid(b: bytes) -> np.ndarray:
+    return sais.suffix_array_sais(b, device="cpu")
+
+
+@pytest.mark.parametrize("text", DIRECTED, ids=lambda b: repr(b)[:16])
+def test_hybrid_directed(text):
+    got = _hybrid(text)
+    assert got.dtype == np.uint32
+    assert np.array_equal(got, naive_table(text))
+    assert np.array_equal(got, jax_sais.suffix_array_sais(text))
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.binary(min_size=1, max_size=96))
+def test_prop_hybrid(b):
+    assert np.array_equal(_hybrid(b), naive_table(b))
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.text(alphabet="ab\x00", min_size=1, max_size=64))
+def test_prop_hybrid_small_alphabet(s):
+    b = s.encode()
+    assert np.array_equal(_hybrid(b), naive_table(b))
+
+
+def test_hybrid_dna(dna_10k):
+    got = _hybrid(dna_10k)
+    assert np.array_equal(got, jax_sais.suffix_array_sais(dna_10k))
+    assert np.array_equal(got, _sa(dna_10k))
+
+
+def test_hybrid_descending_chain():
+    b = bytes(range(255, -1, -1)) * 2
+    assert np.array_equal(_hybrid(b), naive_table(b))
+
+
+@pytest.mark.parametrize("text", CORPORA + TRICKY[:4],
+                         ids=lambda b: repr(b)[:16])
+def test_lms_class_rank_from_doubling_matches_jax(text):
+    padded = _padded(text)
+    got = sais._lms_class_rank_from_doubling(torch.from_numpy(padded))
+    want = jax_sais._lms_class_rank_from_doubling(jnp.asarray(padded))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_hybrid_empty_text():
+    assert _hybrid(b"").shape == (0,) and _hybrid(b"").dtype == np.uint32

@@ -190,8 +190,12 @@ def test_build_stats_two_phase_matches_jax(jax_side, monkeypatch):
 
 
 def test_build_stats_engines(jax_side):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        metrics.build_stats(b"abc", engine="sharded", device="cpu")
+    # engine="sharded" over a one-rank mesh: JAX's make_mesh(1) stats.
+    sa, stats = metrics.build_stats(b"abracadabra", engine="sharded",
+                                    device="cpu")
+    jsa, jstats = jax_side[2].build_stats(b"abracadabra", engine="sharded")
+    assert stats["engine"] == "sharded(d=1)" and np.array_equal(sa, jsa)
+    _same_stats(stats, jstats)
     with pytest.raises(ValueError, match="unknown engine"):
         metrics.build_stats(b"abc", engine="naive", device="cpu")
     _, stats = metrics.build_stats(b"abc", engine="device",
