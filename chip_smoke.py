@@ -134,6 +134,19 @@ Phases, each printing one JSON line:
               ``suffix_array_sharded_stepped`` (the SPMD round body) on
               it and on the 128 MiB text, every digest the default
               build's; seconds, rounds, peak memory.
+   sharded_serve — ``ShardedQueryIndex`` (parallel/dist_query.py) over
+              the same mesh: the 128 MiB text's device-resident index
+              (``sa=None``: build, align, keys; seconds, peak over
+              resident, bytes a position), its table the default build's;
+              the queries_128m_deep battery, every (start, count) equal to
+              the deep index's, queries per second; 256 patterns through
+              the collective slice (one byte past MAX_SLICE_ELEMS), each
+              slice the single-card table's, 16 as sets on the bytes, and
+              ``any_position``; the sharded LCP of the 64 MiB DNA and the
+              4 MiB near-repeated tables equal to lcp_64m's and
+              lcp_4m_nearrep's (seconds, peak, rounds, survivors);
+              ``SuffixTree.from_sharded`` on the 100 KB fixture equal to
+              the host fold; ``dryrun_multichip(1)``.
    sharded_ckpt — the stepped build of the 4 MiB near-repeated corpus,
               checkpointed every round; a run stopped by its hook after
               round 3, then resumed: the same table, the rest of the
@@ -142,14 +155,18 @@ Phases, each printing one JSON line:
               4 NCCL ranks, one process a card (``launch.spawn``), on the
               64 MiB text: the one-shot and the stepped build, each digest
               the default build's, and the bucket layout (one
-              byte_histogram launch a rank); with one card it prints that
-              it did not run, and why.
+              byte_histogram launch a rank); the ShardedQueryIndex of the
+              text (``sa=None``), its 16,384-pattern battery's bounds the
+              one-rank index's and its LCP lcp_64m's, and
+              ``dryrun_multichip`` over the world; with one card it prints
+              that it did not run, and why.
 14. cli     — ``python -m suffix_torch`` in subprocesses on the 4 MiB DNA
               text in a temporary directory: build --stats -o, build
               --engine sharded --devices 1 --checkpoint (its saved table
               the default build's), stree banana (JAX's dot, pinned) and
               warmup at once, then search (64 patterns, checked on the
-              bytes), info (max LCP) and serve --tcp 0 --batch --warm
+              bytes), search --sharded --devices 1 (its stdout the plain
+              search's), info (max LCP) and serve --tcp 0 --batch --warm
               (ping, count, quit) at once; each step's wall seconds.
 
 byte_histogram's launch counter is set to 0 just before phase 5 and read
@@ -161,7 +178,12 @@ runs library operations only, the native and hybrid phases host C++;
 sais_hybrid's derivation launches byte_histogram outside both counted
 windows; the probe engines, the rest of the sharded build, the serving,
 tree and CLI phases run library operations and collectives and launch
-none of the four kernels.
+none of the four kernels. Sharded serving adds no kernel: the JAX
+package's ``dist_query.py`` runs no Pallas kernel, only XLA sorts,
+gathers and collectives, and its port runs library operations and
+``torch.distributed`` calls; sharded_build, sharded_serve, sharded_ckpt,
+sharded_multi (but for its layout) and the cli phase launch none of the
+four kernels.
 The line before
 the last is the kernel table (``{"kernels": [...]}``); the last line is
 the device summary. Any failed
@@ -622,11 +644,11 @@ def counted_lcp(lcp_ops, native, st, trace: list | None = None):
     return lcp, lcp_s, calls
 
 
-def check_lcp_64m(torch, lcp_ops, native, st, raw: bytes) -> None:
+def check_lcp_64m(torch, lcp_ops, native, st, raw: bytes) -> str:
     """lcp_64m: ``lcp_lens()`` through the bulk ladder (wrappers count the
     ladder and Kasai calls and take the ladder's per-stage trace); the
     census in (2048, n/64]; sampled pairs and every survivor pair against
-    the bytes."""
+    the bytes. Returns the LCP array's digest."""
     t_phase = time.perf_counter()
     trace: list = []
     torch.cuda.reset_peak_memory_stats()
@@ -652,6 +674,7 @@ def check_lcp_64m(torch, lcp_ops, native, st, raw: bytes) -> None:
          max_lcp=max_lcp, check_s=time.perf_counter() - t0,
          peak_device_gib=peak / 2**30, ladder=trace,
          phase_s=time.perf_counter() - t_phase)
+    return sha(lcp)
 
 
 def build_device(torch, SuffixTable, verify, raw: bytes, phase: str,
@@ -846,10 +869,11 @@ def check_bounds(raw: bytes, table: np.ndarray, queries: list[bytes],
     return k
 
 
-def check_deep_queries(torch, search2, st, raw: bytes) -> None:
+def check_deep_queries(torch, search2, st, raw: bytes) -> dict:
     """queries_128m_deep: the deep keyless index, the battery through the
     public batch calls, every bound equal to the flat-key engine's, 4,096
-    checked on the bytes; queries per second, median of 5."""
+    checked on the bytes; queries per second, median of 5. Returns each
+    kind's (queries, starts, counts)."""
     t_phase = time.perf_counter()
     n = len(raw)
     torch.cuda.synchronize()
@@ -868,7 +892,7 @@ def check_deep_queries(torch, search2, st, raw: bytes) -> None:
     torch.cuda.synchronize()
     flat_index_s = time.perf_counter() - t0
     everything = [[], [], []]
-    rows = {}
+    rows, bounds = {}, {}
     for name, qs in kinds.items():
         t0 = time.perf_counter()
         counts = st.count_batch(qs)
@@ -882,6 +906,7 @@ def check_deep_queries(torch, search2, st, raw: bytes) -> None:
                                  "the flat-key engine's")
         rows[name] = {"queries": len(qs), "first_batch_s": first_s,
                       "matched": int((counts > 0).sum())}
+        bounds[name] = (qs, starts, counts)
         for acc, part in zip(everything, (qs, starts, counts)):
             acc.extend(part)
     del fences, block
@@ -899,6 +924,7 @@ def check_deep_queries(torch, search2, st, raw: bytes) -> None:
          index_peak_device_gib=index_peak / 2**30,
          flat_index_s=flat_index_s, bounds_checked=checked, kinds=rows,
          phase_s=time.perf_counter() - t_phase)
+    return bounds
 
 
 def check_lean(torch, search2, st) -> None:
@@ -1027,11 +1053,11 @@ def check_small_builds(native, SuffixTable, resolve_device,
 
 
 def check_lcp_kasai(lcp_ops, native, st, raw: bytes, phase: str,
-                    card: str) -> None:
+                    card: str) -> str:
     """lcp_4m_nearrep, lcp_128m_text: ``lcp_lens()`` on a survivor-dense
     table: the sampler sends it to Kasai (wrappers: Kasai once, by the
     native library; the bulk ladder never), 65,536 sampled pairs checked
-    against the bytes."""
+    against the bytes. Returns the LCP array's digest."""
     lcp, lcp_s, calls = counted_lcp(lcp_ops, native, st)
     if calls != {"bulk": 0, "kasai": 1, "native_kasai": 1, "numpy_kasai": 0}:
         raise AssertionError(f"{phase} took {calls}; expected the native "
@@ -1041,6 +1067,7 @@ def check_lcp_kasai(lcp_ops, native, st, raw: bytes, phase: str,
     emit(phase, card=card, n=len(raw), lcp_s=lcp_s, calls=calls,
          route="native_kasai", sampled_pairs=LCP_SAMPLES, max_lcp=max_lcp,
          check_s=time.perf_counter() - t0)
+    return sha(lcp)
 
 
 def hybrid_queries(raw: bytes) -> list[bytes]:
@@ -1424,9 +1451,10 @@ def check_cli(raw: bytes, max_lcp: int, card: str, table_sha: str,
     """cli: ``python -m suffix_torch`` in subprocesses on the 4 MiB DNA
     text in a temporary directory (build with stats and -o, the sharded
     build over one rank with a checkpoint, stree banana and warmup at
-    once; then search, info and serve --tcp 0 --batch --warm at once),
-    each output checked, the sharded build's saved table against
-    ``table_sha``; each step's wall seconds."""
+    once; then search, search --sharded --devices 1, info and serve
+    --tcp 0 --batch --warm at once), each output checked (the sharded
+    search's stdout equal to the plain one's), the sharded build's saved
+    table against ``table_sha``; each step's wall seconds."""
     import queue
     import socket
     import tempfile
@@ -1507,6 +1535,8 @@ def check_cli(raw: bytes, max_lcp: int, card: str, table_sha: str,
         proc = popen("serve", "--index", str(idx), "--tcp", "0", "--batch",
                      "--max-batch", "4096", "--warm")
         jobs = [start("search", "search", "--index", str(idx), *queries),
+                start("search_sharded", "search", "--sharded", "--devices",
+                      "1", "--index", str(idx), *queries),
                 start("info", "info", str(idx))]
         try:
             lines_q = queue.Queue()
@@ -1553,7 +1583,11 @@ def check_cli(raw: bytes, max_lcp: int, card: str, table_sha: str,
                 {"id": 3, "result": "bye"}]
         if answers != want:
             raise AssertionError(f"cli serve answered {answers}")
-        search, info = (finish(j) for j in jobs)
+        search, search_sharded, info = (finish(j) for j in jobs)
+    if search_sharded != search:
+        raise AssertionError("cli search --sharded printed "
+                             f"{search_sharded[:300]!r}, search "
+                             f"{search[:300]!r}")
     got = [ln.split("\t") for ln in search.splitlines()]
     for q, (name, count, pos) in zip(patterns, got):
         hits = occurrences(raw, q)
@@ -1807,16 +1841,166 @@ def check_sharded_ckpt(dist_build, mesh, raw: bytes, want_sha: str,
          phase_s=time.perf_counter() - t_phase)
 
 
-def _multi_rank(mesh, path: str, ckpt: str) -> dict:
+def frequent_byte(raw: bytes, floor: int) -> bytes:
+    """The byte of ``raw`` that occurs least often above ``floor`` times:
+    its slice takes more than one collective chunk of ``floor`` ranks."""
+    counts = np.bincount(np.frombuffer(raw, np.uint8), minlength=256)
+    above = np.flatnonzero(counts > floor)
+    return bytes([int(above[np.argmin(counts[above])])])
+
+
+def check_sharded_serve(torch, dist_query, SuffixTable, SuffixTree,
+                        dryrun, mesh, card: str, *, text128: bytes,
+                        sha_128m: str, deep: dict, tab128: np.ndarray,
+                        freq: tuple, raw64: bytes, tab64: np.ndarray,
+                        sha_lcp64: str, nearrep: bytes,
+                        tab_near: np.ndarray, sha_lcp_near: str) -> tuple:
+    """sharded_serve: ShardedQueryIndex over the one-rank NCCL mesh.
+
+    The 128 MiB text with ``sa=None`` (the device-resident build, the
+    align and the keys): seconds, peak over resident, bytes a position of
+    text, table and keys, the table's digest the default build's; the
+    queries_128m_deep battery, every (start, count) equal to the deep
+    index's (``deep``), queries per second (median of 5); 256 patterns
+    through ``positions_batch`` with no host table (one byte, ``freq``,
+    past MAX_SLICE_ELEMS), each slice the single-card table's, 16 checked
+    as sets on the bytes, ``any_position`` the slice's first row. The
+    LCPs of the 64 MiB DNA and the 4 MiB near-repeated text equal the
+    lcp_64m and lcp_4m_nearrep arrays (digests): seconds, peak, rounds,
+    survivors. ``SuffixTree.from_sharded`` on the 100 KB fixture; the dry
+    run at one rank. Returns the 64 MiB DNA index's (battery, starts,
+    counts) for sharded_multi."""
+    import gc
+
+    t_phase = time.perf_counter()
+    dev = mesh.device
+    out = {}
+
+    def start_peak():
+        sync_peak(torch, dev, reset=True)
+        return torch.cuda.memory_allocated(dev)
+
+    base = start_peak()
+    t0 = time.perf_counter()
+    idx = dist_query.ShardedQueryIndex(text128, mesh)
+    index_s = time.perf_counter() - t0
+    peak = sync_peak(torch, dev)
+    if idx._sa_host is not None or sha(idx.table()) != sha_128m:
+        raise AssertionError("sharded_serve: the 128 MiB device-resident "
+                             "index's table differs from the default build")
+    out["index_128m"] = {
+        "seconds": index_s, "peak_device_gib": peak,
+        "peak_over_resident_gib": peak - base / 2**30,
+        "resident_gib": torch.cuda.memory_allocated(dev) / 2**30,
+        "bytes_per_position": idx._resident_bytes() / idx.n_pad,
+        "n_pad": idx.n_pad}
+
+    rows = {}
+    for name, (qs, want_s, want_c) in deep.items():
+        t0 = time.perf_counter()
+        starts, counts = idx.bounds_batch(*idx._encode(qs))
+        first_s = time.perf_counter() - t0
+        if not (np.array_equal(starts, want_s)
+                and np.array_equal(counts, want_c)):
+            bad = int(np.sum((starts != want_s) | (counts != want_c)))
+            raise AssertionError(f"sharded_serve {name}: {bad} bounds "
+                                 "differ from the deep index's")
+        rows[name] = {"queries": len(qs), "first_batch_s": first_s}
+        if name.startswith("mixed"):
+            times = timed(torch, dev, lambda qs=qs: idx.count_batch(qs))[1]
+            rows[name].update(batch_times_s=times, queries_per_s=len(
+                qs) / statistics.median(times))
+    out["queries"] = rows
+
+    pats = deep["mixed16384"][0][:255] + [freq[0]]
+    want_s = np.append(deep["mixed16384"][1][:255], freq[1])
+    want_c = np.append(deep["mixed16384"][2][:255], freq[2])
+    t0 = time.perf_counter()
+    slices = idx.positions_batch(pats)
+    slices_s = time.perf_counter() - t0
+    anyp = idx.any_position_batch(pats)
+    for p, got, s, c, a in zip(pats, slices, want_s, want_c, anyp):
+        if not np.array_equal(got, tab128[s:s + c]):
+            raise AssertionError(f"sharded_serve: the slice of {p!r} "
+                                 "differs from the single-card table's")
+        if a != (int(got[0]) if c else None):
+            raise AssertionError(f"sharded_serve: any_position({p!r})")
+    sets = [i for i, c in enumerate(want_c[:255]) if c][:16]
+    for i in sets:
+        if sorted(slices[i].tolist()) != occurrences(text128, pats[i]):
+            raise AssertionError(f"sharded_serve: {pats[i]!r} positions")
+    byte = np.frombuffer(freq[0], np.uint8)[0]
+    if not np.array_equal(np.sort(slices[-1]), np.flatnonzero(
+            np.frombuffer(text128, np.uint8) == byte)):
+        raise AssertionError(f"sharded_serve: {freq[0]!r} positions")
+    out["slices"] = {"patterns": len(pats), "seconds": slices_s,
+                     "frequent": freq[0].decode(), "frequent_count":
+                     int(freq[2]), "max_slice_elems":
+                     idx.MAX_SLICE_ELEMS, "set_checked": len(sets) + 1}
+    del idx, slices
+    gc.collect()
+
+    lcps = {}
+    for name, raw, tab, want in (("dna_64m", raw64, tab64, sha_lcp64),
+                                 ("nearrep_4m", nearrep, tab_near,
+                                  sha_lcp_near)):
+        sidx = dist_query.ShardedQueryIndex(raw, mesh, sa=tab)
+        base = start_peak()
+        t0 = time.perf_counter()
+        lcp = sidx.lcp_lens()
+        secs = time.perf_counter() - t0
+        peak = sync_peak(torch, dev)
+        if sha(lcp) != want:
+            raise AssertionError(f"sharded_serve: the {name} sharded LCP "
+                                 "differs from the single-card one")
+        lcps[name] = {"seconds": secs, "peak_device_gib": peak,
+                      "peak_over_resident_gib": peak - base / 2**30,
+                      "max_lcp": int(lcp.max()), **sidx._lcp_trace}
+        if name == "dna_64m":
+            battery = battery_128m(np.frombuffer(raw, np.uint8))[
+                "mixed16384"]
+            multi = (battery, *sidx.bounds_batch(*sidx._encode(battery)))
+        del sidx, lcp
+        gc.collect()
+    out["lcp"] = lcps
+
+    fixture = FIXTURE.read_bytes()
+    t0 = time.perf_counter()
+    tree = SuffixTree.from_sharded(dist_query.ShardedQueryIndex(fixture,
+                                                                mesh))
+    tree_s = time.perf_counter() - t0
+    ref = SuffixTree.from_suffix_table(SuffixTable.new(fixture))
+    if [n.suffixes for n in tree.root().preorder()] != [
+            n.suffixes for n in ref.root().preorder()]:
+        raise AssertionError("sharded_serve: SuffixTree.from_sharded "
+                             "differs from from_suffix_table")
+    out["tree_100k"] = {"seconds": tree_s}
+    del tree, ref
+
+    t0 = time.perf_counter()
+    summary = dryrun.dryrun_multichip(1)
+    if summary is None or set(summary["surfaces"].values()) != {"ok"}:
+        raise AssertionError(f"sharded_serve: dryrun_multichip(1) gave "
+                             f"{summary}")
+    out["dryrun_1"] = {"seconds": time.perf_counter() - t0,
+                       "build_s_1MB": summary["build_s_1MB"]}
+    emit("sharded_serve", card=card, world=mesh.world_size, n=len(text128),
+         **out, phase_s=time.perf_counter() - t_phase)
+    return multi
+
+
+def _multi_rank(mesh, path: str, ckpt: str, battery: list) -> dict:
     """One rank of sharded_multi: the one-shot and the stepped build of the
-    text at ``path`` and its bucket layout over ``mesh``, each timed from a
-    barrier to this rank's result; digests, and whether every rank's
-    agree."""
+    text at ``path`` and its bucket layout over ``mesh``; then its
+    ShardedQueryIndex (``sa=None``), the ``battery``'s bounds and the LCP;
+    each timed from a barrier to this rank's result; digests, and whether
+    every rank's agree; then the dry run over the mesh."""
     import torch
     import torch.distributed as dist
 
     from suffix_torch.ops import kernels
-    from suffix_torch.parallel import collective_bins, dist_build
+    from suffix_torch.parallel import collective_bins, dist_build, dryrun
+    from suffix_torch.parallel.dist_query import ShardedQueryIndex
     from suffix_torch.utils.io import open_corpus
 
     out, rounds = {}, []
@@ -1845,22 +2029,34 @@ def _multi_rank(mesh, path: str, ckpt: str) -> dict:
         collective_bins.global_bucket_layout(text, mesh)))
     out["launches"] = kernels.byte_histogram.launches
     out["layout"] = [a.tolist() for a in layout]
+    idx = run("index", lambda: ShardedQueryIndex(path, mesh))
+    out["bounds"] = [sha(a) for a in run("bounds", lambda: idx.bounds_batch(
+        *idx._encode(battery)))]
+    out["lcp"] = sha(run("lcp", idx.lcp_lens))
+    out["lcp_trace"] = idx._lcp_trace
+    del idx
     out["peak_device_gib"] = sync_peak(torch, dev)
     seen = [None] * mesh.world_size
     dist.all_gather_object(seen, (out["one_shot"], out["stepped"],
-                                  out["layout"], out["launches"]))
+                                  out["layout"], out["launches"],
+                                  out["bounds"], out["lcp"]))
     out["ranks_agree"] = all(x == seen[0] for x in seen)
+    out["dryrun"] = run("dryrun", lambda: dryrun.dryrun_multichip(
+        mesh.world_size, device=dev.type))
     return out
 
 
 def check_sharded_multi(torch, launch, raw: bytes, want_sha: str,
-                        card: str) -> None:
+                        card: str, multi: tuple, sha_lcp64: str) -> None:
     """sharded_multi: where the machine has two or more cards, worlds of 2
     and (with four cards) 4 NCCL ranks, one process a card
     (``launch.spawn``), on the 64 MiB DNA text: the one-shot and the
     stepped build, each digest the default build's, and the bucket
     layout, equal to ``np.bincount`` with one byte_histogram launch a
-    rank; seconds of each inside the ranks and of the whole spawn. With
+    rank; the ShardedQueryIndex (``sa=None``): the 16,384 battery's
+    bounds equal to the one-rank index's (``multi`` = (battery, starts,
+    counts)) and the LCP's digest to lcp_64m's; the dry run over the
+    world; seconds of each inside the ranks and of the whole spawn. With
     one card it is not run."""
     import tempfile
 
@@ -1883,19 +2079,24 @@ def check_sharded_multi(torch, launch, raw: bytes, want_sha: str,
         for world in (2, 4)[:1 + (count >= 4)]:
             t0 = time.perf_counter()
             got = launch.spawn(_multi_rank, world, str(path),
-                               str(Path(tmp) / f"ck{world}.npz"))
+                               str(Path(tmp) / f"ck{world}.npz"), multi[0])
             spawn_s = time.perf_counter() - t0
             if (got["one_shot"] != want_sha or got["stepped"] != want_sha
                     or got["layout"] != want_layout or got["launches"] != 1
-                    or not got["ranks_agree"]):
+                    or got["bounds"] != [sha(a) for a in multi[1:]]
+                    or got["lcp"] != sha_lcp64 or not got["ranks_agree"]
+                    or got["dryrun"] is None):
                 raise AssertionError(f"sharded_multi at {world} ranks: "
                                      f"tables {got['one_shot'][:12]} / "
                                      f"{got['stepped'][:12]}, launches "
-                                     f"{got['launches']}, ranks agree "
+                                     f"{got['launches']}, bounds "
+                                     f"{got['bounds']}, lcp "
+                                     f"{got['lcp'][:12]}, ranks agree "
                                      f"{got['ranks_agree']}")
             worlds.append({"world": world, "spawn_s": spawn_s,
                            **{k: v for k, v in got.items()
-                              if k not in ("layout", "one_shot", "stepped")}})
+                              if k not in ("layout", "one_shot", "stepped",
+                                           "bounds", "lcp")}})
     emit("sharded_multi", card=card, run=True, cards=count, n=len(raw),
          worlds=worlds, phase_s=time.perf_counter() - t_phase)
 
@@ -1928,7 +2129,9 @@ def main() -> int:
     from suffix_torch import serve
     from suffix_torch.ops import kernels, probes, sais, search, search2
     from suffix_torch.ops import lcp as lcp_ops
-    from suffix_torch.parallel import collective_bins, dist_build, launch
+    from suffix_torch import SuffixTree
+    from suffix_torch.parallel import (collective_bins, dist_build,
+                                       dist_query, dryrun, launch)
     from suffix_torch.parallel.mesh import destroy_group, make_mesh
     from suffix_torch.utils import textgen
     from suffix_torch.utils.verify import verify_suffix_array
@@ -2005,7 +2208,7 @@ def main() -> int:
         0, 4, size=N_TEXT_64M, dtype=np.uint8) + 97).tobytes()
     st64 = build_device(torch, SuffixTable, verify_suffix_array, raw64,
                         "build_64m_device")
-    check_lcp_64m(torch, lcp_ops, native, st64, raw64)
+    sha_lcp64 = check_lcp_64m(torch, lcp_ops, native, st64, raw64)
     profile(torch, "lcp_64m", st64.lcp_lens, LCP_SCOPES)
     tab64 = st64.table()  # for verify_device
     del st64
@@ -2038,7 +2241,7 @@ def main() -> int:
     st128 = build_device(torch, SuffixTable, verify_suffix_array, text128,
                          "build_128m_text", LABEL_TEXT_128M,
                          generate_s=time.perf_counter() - t0)
-    check_deep_queries(torch, search2, st128, text128)
+    deep = check_deep_queries(torch, search2, st128, text128)
     check_serve(torch, serve, st128, text128, card)
     drain = battery_128m(np.frombuffer(text128, np.uint8))["mixed16384"][:4096]
     profile(torch, "queries_128m_deep_4096", lambda: st128.count_batch(drain),
@@ -2060,14 +2263,21 @@ def main() -> int:
     emit("build_4m_native", card=card, build_s=build_s,
          mb_per_s=len(raw) / 1e6 / build_s, **st_n.build_stats)
     del st_n
-    check_lcp_kasai(lcp_ops, native, st_near, nearrep, "lcp_4m_nearrep",
-                    card)
+    sha_lcp_near = check_lcp_kasai(lcp_ops, native, st_near, nearrep,
+                                   "lcp_4m_nearrep", card)
     check_trees(torch, SuffixTable, [("dna_4m", st_d), ("nearrep_4m", st_near)],
                 "cuda", card)
-    sha_near = sha(st_near.table())
+    tab_near = st_near.table()
+    sha_near = sha(tab_near)
     del st_near
     check_lcp_kasai(lcp_ops, native, st128, text128, "lcp_128m_text", card)
-    sha_128m = sha(st128.table())
+    tab128 = st128.table()
+    sha_128m = sha(tab128)
+    # A byte whose slice takes more than one collective chunk, with its
+    # bounds on the single-card index (sharded_serve).
+    freq = frequent_byte(text128,
+                         dist_query.ShardedQueryIndex.MAX_SLICE_ELEMS)
+    freq = (freq, *(int(a[0]) for a in st128._bounds_batch([freq])))
     del st128
     check_hybrid(native, search2, st_d, raw, card)
     check_verify_device(SuffixTable, [("dna_4m", raw, st_d.table()),
@@ -2080,14 +2290,21 @@ def main() -> int:
     bins_launches = check_collective_bins(torch, kernels, collective_bins,
                                           mesh, raw64, card)
     sha_64m = sha(tab64)
-    del tab64
     check_sharded_build(torch, dist_build, mesh,
                         [("dna_64m", raw64, sha_64m),
                          ("text_128m", text128, sha_128m)], card)
-    del text128
+    gc.collect()
+    multi = check_sharded_serve(
+        torch, dist_query, SuffixTable, SuffixTree, dryrun, mesh, card,
+        text128=text128, sha_128m=sha_128m, deep=deep, tab128=tab128,
+        freq=freq, raw64=raw64, tab64=tab64, sha_lcp64=sha_lcp64,
+        nearrep=nearrep, tab_near=tab_near, sha_lcp_near=sha_lcp_near)
+    del text128, tab128, tab64, tab_near, deep
+    gc.collect()
     check_sharded_ckpt(dist_build, mesh, nearrep, sha_near, card)
     destroy_group()
-    check_sharded_multi(torch, launch, raw64, sha_64m, card)
+    check_sharded_multi(torch, launch, raw64, sha_64m, card, multi,
+                        sha_lcp64)
     del raw64
     check_cli(raw, max_lcp_4m, card, sha_4m)
 

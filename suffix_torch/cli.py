@@ -14,9 +14,9 @@ Plus ``search`` (batched queries against a file or a saved index),
 ``serve`` (the JSONL server of serve.py), ``info`` and ``warmup``.
 ``--platform`` picks the torch device: ``cuda`` (the default, which
 raises without a card) or ``cpu``; env ``SUFFIX_TORCH_PLATFORM``.
-``build --engine sharded`` and ``warmup --devices N`` run over a process
-group: the caller's, or ``N`` ranks started for the command
-(``parallel/launch.py``); rank 0 writes the output.
+``build --engine sharded``, ``search --sharded`` and ``warmup --devices N``
+run over a process group: the caller's, or ``N`` ranks started for the
+command (``parallel/launch.py``); rank 0 writes the output.
 """
 
 from __future__ import annotations
@@ -25,12 +25,6 @@ import argparse
 import os
 import sys
 import time
-
-from suffix_torch.utils.config import SHARDED_TODO
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: {SHARDED_TODO}")
 
 
 def _cmd_build(args) -> int:
@@ -91,30 +85,56 @@ def _cmd_stree(args) -> int:
     return 0
 
 
-def _cmd_search(args) -> int:
+def _search_table(index: str | None, file: str | None, device):
+    """The table ``search`` answers from: the saved index, else the
+    file's."""
     from suffix_torch import SuffixTable
     from suffix_torch.utils.checkpoint import load_index
 
-    if args.sharded:
-        raise _not_ported("search --sharded")
-    if args.index:
-        st = load_index(args.index, device=args.device)
-    elif args.file:
-        try:
-            with open(args.file, "rb") as f:
-                st = SuffixTable.new(f.read(), device=args.device)
-        except OSError as e:
-            print(f"error: cannot read {args.file}: {e.strerror}", file=sys.stderr)
-            return 1
-    else:
+    if index:
+        return load_index(index, device=device)
+    with open(file, "rb") as f:
+        return SuffixTable.new(f.read(), device=device)
+
+
+def _sharded_positions(mesh, index: str | None, file: str | None,
+                       queries: list):
+    """One rank of ``search --sharded``: the rank reads the index or the
+    file itself, then serves the batch from a ShardedQueryIndex."""
+    from suffix_torch.parallel.dist_query import ShardedQueryIndex
+
+    st = _search_table(index, file, mesh.device)
+    idx = ShardedQueryIndex(st.text_bytes(), mesh, sa=st.table())
+    return idx.positions_batch(queries)
+
+
+def _cmd_search(args) -> int:
+    if not (args.index or args.file):
         print("error: search requires --file or --index", file=sys.stderr)
         return 2
+    if not args.index:
+        try:
+            open(args.file, "rb").close()
+        except OSError as e:
+            print(f"error: cannot read {args.file}: {e.strerror}",
+                  file=sys.stderr)
+            return 1
     queries = args.query
     if args.queries_file:
         with open(args.queries_file) as f:
             queries = queries + [ln.rstrip("\n") for ln in f if ln.strip()]
-    for q, hits in zip(queries, st.positions_batch(queries)):
-        print(f"{q}\t{len(hits)}\t{','.join(map(str, sorted(hits.tolist())))}")
+    if args.sharded:
+        from suffix_torch.parallel import launch
+
+        hits = launch.run(_sharded_positions, args.devices, args.index,
+                          args.file, queries, device=args.device)
+        if not launch.is_lead():
+            return 0
+    else:
+        st = _search_table(args.index, args.file, args.device)
+        hits = st.positions_batch(queries)
+    for q, h in zip(queries, hits):
+        print(f"{q}\t{len(h)}\t{','.join(map(str, sorted(h.tolist())))}")
     return 0
 
 
@@ -270,7 +290,8 @@ def main(argv=None) -> int:
     q.add_argument("--index", help="pre-built index checkpoint (npz)")
     q.add_argument("--queries-file", help="file with one query per line")
     q.add_argument("--sharded", action="store_true",
-                   help="serve from a sharded index (not ported yet)")
+                   help="serve from a sharded index (over --devices "
+                        "ranks)")
     q.add_argument("--devices", type=int, default=None,
                    help="mesh size for --sharded (default: all)")
     q.add_argument("query", nargs="*")

@@ -31,6 +31,15 @@ def _cmp_suffix_query(text: torch.Tensor, n_text: int, sufi: torch.Tensor,
     live = (offs >= 0) & (offs < min(n_text, text.shape[0]))
     window = torch.where(
         live, text[torch.clamp(offs, 0, text.shape[0] - 1).long()], PAD)
+    return _cmp_window(window, queries, qlens)
+
+
+def _cmp_window(window: torch.Tensor, queries: torch.Tensor,
+                qlens: torch.Tensor):
+    """``_cmp_suffix_query`` on suffix windows already fetched: ``window``
+    is ``(Q, m)``, the suffix's first m bytes with PAD past the text."""
+    m = queries.shape[1]
+    cols = torch.arange(m, dtype=torch.int32, device=queries.device)
     # First byte mismatch within each query's live range (m if none).
     neq = (window != queries) & (cols[None, :] < qlens[:, None])
     first = torch.where(neq, cols[None, :], m).min(dim=1).values

@@ -16,7 +16,6 @@ from __future__ import annotations
 from typing import Iterator, Optional
 
 from suffix_torch.table import SuffixTable, _as_bytes
-from suffix_torch.utils.config import SHARDED_TODO
 
 
 class Node:
@@ -103,8 +102,15 @@ class SuffixTree:
 
     @classmethod
     def from_sharded(cls, idx) -> "SuffixTree":
-        """Tree from a sharded index: not ported yet."""
-        raise NotImplementedError(f"SuffixTree.from_sharded: {SHARDED_TODO}")
+        """Tree from a mesh-sharded index (``parallel/dist_query.py``).
+
+        The SA and the LCP array come from the collective engines; only
+        the linear host fold (suffix_tree/src/lib.rs:392-505) runs here.
+        Collective: every rank of ``idx.mesh`` calls it."""
+        st = SuffixTable.from_parts(idx._text_bytes(), idx.table(),
+                                    device=idx.mesh.device)
+        st._lcp_override = idx.lcp_lens()
+        return _to_suffix_tree(st)
 
     def text(self):
         return self._raw.decode("utf-8") if self._was_str else self._raw

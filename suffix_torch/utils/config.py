@@ -10,8 +10,6 @@ from __future__ import annotations
 
 import dataclasses
 
-SHARDED_TODO = "sharded serving is not ported yet (ROADMAP item 15)"
-
 
 @dataclasses.dataclass(frozen=True)
 class BuildConfig:

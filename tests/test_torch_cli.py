@@ -5,8 +5,9 @@ print what ``suffix_tpu.cli.main`` prints for the same argv (a stats
 line's timings and device name aside); saved indexes cross-load both
 ways, ``doc_starts`` included; ``warmup`` runs; the sharded build and
 sharded warmup (one rank in process, two started for the command) print
-what JAX's do and save the same index; ``search --sharded`` and a
-missing card raise; and one subprocess runs ``python -m suffix_torch``.
+what JAX's do and save the same index; ``search --sharded`` (two ranks)
+prints what JAX's does; a missing card raises; and one subprocess runs
+``python -m suffix_torch``.
 Tolerance: exact equality.
 """
 
@@ -156,17 +157,15 @@ def test_warmup_names_match_jax(jax_cli, capsys):
     ["build", FIXTURE, "-e", "sharded"],
     ["build", FIXTURE, "-e", "sharded", "--devices", "2", "--checkpoint",
      "ck.npz", "--resume"],
-    ["search", "--file", FIXTURE, "--sharded", "AGCTT"],
+    ["search", "--file", FIXTURE, "--sharded", "--devices", "2", "AGCTT",
+     "GATTACA", "ACGTACGTACGTACGTACGTA", "", "CGCTGG"],
     ["warmup", "--size", "500", "--devices", "2"],
 ])
 def test_sharded_options_raise(jax_cli, capsys, tmp_path, monkeypatch, argv):
-    """The sharded build and warmup (stubs until the sharded build was
-    ported) print what JAX's CLI prints and save the same index; sharded
-    serving (``search --sharded``, ROADMAP item 15) still raises."""
-    if argv[0] == "search":
-        with pytest.raises(NotImplementedError, match="item 15"):
-            main(["--platform", "cpu", *argv])
-        return
+    """The sharded build, sharded search (two ranks started for the
+    command) and sharded warmup print what JAX's CLI prints (the test's
+    name dates from when they raised), and the builds save the same
+    index."""
     jax_main, _ = jax_cli
     monkeypatch.chdir(tmp_path)  # the relative checkpoint path lands here
     out = argv + (["-o", "{}.npz"] if argv[0] == "build" else [])
@@ -178,6 +177,10 @@ def test_sharded_options_raise(jax_cli, capsys, tmp_path, monkeypatch, argv):
         text = run(fn, ["--platform", "cpu", *args], capsys)
         outs.append(re.sub(r"\d+\.\d+s", "Xs", text))
     assert outs[0] == outs[1]
+    if argv[0] == "search":
+        assert outs[0].splitlines()[0] == (
+            "AGCTT\t8\t0,67,1102,3458,3772,4800,5995,8912")
+        return
     if argv[0] == "warmup":
         assert outs[0].splitlines()[-1] == "warmed 3 programs in Xs"
         return

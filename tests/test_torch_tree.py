@@ -119,9 +119,36 @@ def test_new_and_lcp_override_match_jax(jax_tree):
     assert isinstance(port.root(), Node) and port.root().depth() == 0
 
 
-def test_from_sharded_raises():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        SuffixTree.from_sharded(None)
+def _from_sharded_rank(mesh, text: bytes):
+    """One rank of an 8-rank gloo world: the tree of a sharded index
+    (collective; every rank folds the same tree)."""
+    from suffix_torch.parallel.dist_query import ShardedQueryIndex
+
+    tree = SuffixTree.from_sharded(ShardedQueryIndex(text, mesh))
+    return ([n.suffixes for n in tree.root().preorder()],
+            list(tree.root().suffix_indices()), to_dot(tree))
+
+
+def test_from_sharded_raises(jax_tree):
+    """``SuffixTree.from_sharded`` over 8 gloo ranks (the test's name
+    dates from when it raised): the same preorder ``suffixes``,
+    ``suffix_indices`` and dot as JAX's over 8 virtual devices and as the
+    port's own fold of the table (tests/test_tree.py)."""
+    from suffix_torch.parallel import launch
+    from suffix_tpu.parallel.dist_query import ShardedQueryIndex
+    from suffix_tpu.parallel.mesh import make_mesh
+
+    JTable, JTree, jax_to_dot = jax_tree
+    text = b"banana bandana"
+    suffixes, indices, dot = launch.spawn(_from_sharded_rank, 8, text,
+                                          device="cpu")
+    want = JTree.from_sharded(ShardedQueryIndex(text, make_mesh(8)))
+    assert suffixes == [n.suffixes for n in want.root().preorder()]
+    assert indices == list(want.root().suffix_indices())
+    assert dot == jax_to_dot(want)
+    ref = SuffixTree.new(text, device="cpu")
+    assert suffixes == [n.suffixes for n in ref.root().preorder()]
+    assert dot == to_dot(ref)
 
 
 def test_new_without_device_needs_cuda():
