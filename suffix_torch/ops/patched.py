@@ -41,6 +41,7 @@ from torch.profiler import record_function
 from suffix_torch.device import resolve_device
 from suffix_torch.ops.padding import PAD, bucket_size
 from suffix_torch.ops.sort import lexsort, lexsort_perm
+from suffix_torch.utils.profiling import count, root, span
 
 I32 = torch.int32
 
@@ -160,10 +161,12 @@ def _patch_tables(arr: np.ndarray, q: int, defects: np.ndarray):
 def _staged(x: np.ndarray, fill: int, device) -> torch.Tensor:
     """A small host table on ``device``, padded to a bucket with ``fill``
     (the padded ``bnds``, filled with q, is what ``searchsorted`` reads)."""
+    from suffix_torch.ops import prefix_doubling as pd
+
     b = bucket_size(max(int(x.size), 1))
     out = np.full((b,), fill, np.int32)
     out[:x.size] = x
-    return torch.from_numpy(out).to(device)
+    return pd._upload(out, device)
 
 
 def _purity(dense: torch.Tensor, sa: torch.Tensor, n: int,
@@ -182,8 +185,9 @@ def _rerank_pure(cols, sa: torch.Tensor, n: int, q: int):
     from suffix_torch.ops import prefix_doubling as pd
 
     dense = pd._dense_rank(pd._adjacent_diff(cols), sa.dtype)
-    done, pure = torch.stack([dense[-1] == dense.shape[0] - 1,
-                              _purity(dense, sa, n, q)]).tolist()
+    with pd._readback():
+        done, pure = torch.stack([dense[-1] == dense.shape[0] - 1,
+                                  _purity(dense, sa, n, q)]).tolist()
     return dense, done, pure
 
 
@@ -225,6 +229,7 @@ def _patched_core(words, h0: int, index_dtype, n: int, q: int,
     # never pays the inversion.
     k = h0
     while not (done or pure) and k < 2 * n_pad:
+        count("rounds")
         with record_function("P6_route_home"):
             rank = pd._invert_permutation(sa, dense)
         with record_function("P3_shift_ranks"):
@@ -263,7 +268,9 @@ def _rotation_width(arr: np.ndarray, q: int, device) -> int | None:
     if m > arr.size:
         return None
     pp = np.ascontiguousarray(arr[:m])
-    sa = pd.suffix_array_bytes(pp, device=device).astype(np.int64)
+    # A build of its own: its spans and counters stay out of the job's.
+    with root("build.rotation", n=m):
+        sa = pd.suffix_array_bytes(pp, device=device).astype(np.int64)
     rot = sa[sa < q]  # rotation suffixes in rank order
     if rot.size < 2:
         return 0
@@ -295,7 +302,8 @@ def patched_dispatch(arr: np.ndarray, q: int, defects: np.ndarray,
     state (``rounds``, ``h_final``, ``h0``, ``closed_form``)."""
     from suffix_torch.ops import prefix_doubling as pd
 
-    tabs = _patch_tables(arr, q, defects)
+    with span("build.pack"):
+        tabs = _patch_tables(arr, q, defects)
     if tabs is None:
         return None
     dev = resolve_device(device)
@@ -329,21 +337,25 @@ def patched_dispatch(arr: np.ndarray, q: int, defects: np.ndarray,
     # Phase A only separates period rotations: the random-text width
     # estimate (no repeat lever), widened to the measured rotation depth
     # when that costs at most 3 more words.
-    plan = pd._adaptive_plan(arr, n_pad, lcp_lb=None)
-    w_rot = _rotation_width(arr, q, dev)
+    with span("build.plan"):
+        plan = pd._adaptive_plan(arr, n_pad, lcp_lb=None)
+    with span("build.probe"):
+        w_rot = _rotation_width(arr, q, dev)
     if plan is not None:
         lut, bits, cpw, n_words = plan
         if w_rot is not None:
             want = -(-(w_rot + 12) // cpw)  # slack: defect-local ties
             if n_words < want <= min(n_words + 3, PATCH_MAX_WORDS):
                 n_words = want
-        codes = np.zeros((n_pad,), np.int32)
-        codes[:n] = lut[arr]
-        c_dev = torch.from_numpy(codes).to(dev)
+        with span("build.pack"):
+            codes = np.zeros((n_pad,), np.int32)
+            codes[:n] = lut[arr]
+        c_dev = pd._upload(codes, dev)
         return (lambda: run(pd._packed_words(c_dev, n_words, bits, cpw),
                             n_words * cpw), label)
-    padded = np.full((n_pad,), PAD, np.int32)
-    padded[:n] = arr
-    t_dev = torch.from_numpy(padded).to(dev)
+    with span("build.pack"):
+        padded = np.full((n_pad,), PAD, np.int32)
+        padded[:n] = arr
+    t_dev = pd._upload(padded, dev)
     iw = pd.pick_init_words(n_pad)
     return (lambda: run(pd._initial_words(t_dev, iw), 3 * iw), label)

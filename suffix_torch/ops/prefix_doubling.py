@@ -33,12 +33,25 @@ What changes from JAX to PyTorch:
   host-stepped parts, unnamed in JAX, are ``T1_``..``T3_``.
 - ``index_dtype="u64"`` runs int64 indices; it needs no global switch.
 
+The build's layers are spans of the recorder (``utils/profiling.py``)
+inside ``SuffixTable.new``'s ``build`` root: ``build.probe``,
+``build.plan``, ``build.pack`` and ``build.upload`` in
+``device_build_closure``; ``build.dispatch`` (the rounds, to the device's
+end), ``build.download`` and ``build.finish`` in ``suffix_array_bytes``;
+``build.readback`` around each host read of a device value. Counters:
+``rounds`` (quadrupling rounds of both phases), ``host_syncs`` (one a
+readback), ``h2d_bytes`` and ``d2h_bytes`` (the pageable copies; 0 on the
+CPU, where nothing is copied). The patched route's rotation-width build
+(``ops/patched.py``) is a ``build.rotation`` root of its own, inside the
+job's ``build.probe``.
+
 No Pallas kernel lies on this path: it is library sorts, scans, slices,
 gathers and scatters, in JAX as here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -49,6 +62,7 @@ from suffix_torch.device import resolve_device
 from suffix_torch.ops import patched
 from suffix_torch.ops.padding import PAD, bucket_size, bucket_size_fine
 from suffix_torch.ops.sort import lexsort
+from suffix_torch.utils.profiling import annotate, count, span
 
 I32 = torch.int32
 
@@ -90,7 +104,8 @@ def _last_flag_index(flag: torch.Tensor) -> torch.Tensor:
     """For each j, the index of the last True of ``flag`` at or before j
     (``flag[0]`` must be True), int64: JAX's
     ``lax.cummax(where(flag, j, 0))`` as ``starts[cumsum(flag) - 1]``."""
-    starts = torch.nonzero(flag).flatten()
+    with _readback():  # nonzero reads its output size back
+        starts = torch.nonzero(flag).flatten()
     return starts[torch.cumsum(flag, 0) - 1]
 
 
@@ -131,6 +146,15 @@ def _shifted_ranks(rank: torch.Tensor, k: int):
 TRAJ_SLOTS = 24  # >= max quadrupling rounds for any 2^31-byte corpus
 
 
+@contextlib.contextmanager
+def _readback():
+    """A host read of a device value: a ``build.readback`` span and one
+    ``host_syncs``."""
+    count("host_syncs")
+    with span("build.readback"):
+        yield
+
+
 def _rerank(cols, dtype, with_mass: bool):
     """(dense, done, mass) of sorted key columns: dense ranks, whether
     every row is distinct, and (``with_mass``) the tie mass, with one
@@ -138,7 +162,8 @@ def _rerank(cols, dtype, with_mass: bool):
     diff = _adjacent_diff(cols)
     dense = _dense_rank(diff, dtype)
     probe = [dense[-1]] + ([_tie_mass(diff)] if with_mass else [])
-    read = torch.stack([p.to(torch.int64) for p in probe]).tolist()
+    with _readback():
+        read = torch.stack([p.to(torch.int64) for p in probe]).tolist()
     return (dense, read[0] == dense.shape[0] - 1,
             read[1] if with_mass else None)
 
@@ -159,6 +184,7 @@ def _quadrupling_round(rank: torch.Tensor, k: int, idx: torch.Tensor,
     """One round: sort by (rank[i], rank[i+k], rank[i+2k], rank[i+3k]).
     Returns (rank, sa, dense, done, mass); the route-home scatter that
     feeds the next round is skipped when the round is the last."""
+    count("rounds")
     with record_function("P3_shift_ranks"):
         s1, s2, s3 = _shifted_ranks(rank, k)
     with record_function("P4_round_sort"):
@@ -274,13 +300,16 @@ def _to_positional(dense_sorted: torch.Tensor, sa_sorted: torch.Tensor):
     tied = ~(flag & nxt)
     rank_pos = _invert_permutation(sa_sorted, prank_sorted)
     order = torch.sort(torch.where(tied, 0, 1).to(I32), stable=True).indices
-    return rank_pos, sa_sorted[order], int(tied.sum())
+    with _readback():
+        mass = int(tied.sum())
+    return rank_pos, sa_sorted[order], mass
 
 
 def _phase2_round(rank: torch.Tensor, tied_idx: torch.Tensor, k: int):
     """One tie-compacted quadrupling round over the lanes ``tied_idx``:
     each tie group refines inside its positional interval [r0, r0+g).
     Returns (rank, k * 4, done); ``rank`` is updated in place."""
+    count("rounds")
     n = rank.shape[0]
     lanes = tied_idx.long()
     r0 = rank[lanes]
@@ -298,7 +327,8 @@ def _phase2_round(rank: torch.Tensor, tied_idx: torch.Tensor, k: int):
     class_start = _last_flag_index(diff_any)
     new_rank = s0 + (class_start - group_start).to(rank.dtype)
     rank[sidx.long()] = new_rank
-    done = bool(diff_any[1:].all())
+    with _readback():
+        done = bool(diff_any[1:].all())
     return rank, k * 4, done
 
 
@@ -400,7 +430,8 @@ def _adaptive_plan(arr: np.ndarray, n_pad: int, with_meta: bool = False,
     if n_words > ADAPTIVE_MAX_WORDS:
         n_words = None
     if lcp_lb == "auto":
-        lcp_lb = _repeat_lcp_lower_bound(arr)
+        with span("build.probe"):
+            lcp_lb = _repeat_lcp_lower_bound(arr)
     if lcp_lb is not None and lcp_lb > cpw * ADAPTIVE_MAX_WORDS:
         # A long repeat cannot be cleared by the one-shot sort: pick the
         # width that minimizes quadrupling rounds instead.
@@ -461,8 +492,16 @@ def suffix_array_bytes(data, padding: str = "pow2", index_dtype: str = "u32",
         return np.empty((0,), dtype=out_dtype)
     dispatch, label = device_build_closure(arr, n_pad0, index_dtype=dtype,
                                            stats=stats, device=dev)
+    annotate(route=label, n_pad=n_pad0)
     t0 = time.perf_counter()
-    sa_full = dispatch().cpu().numpy()
+    with span("build.dispatch"):
+        sa_dev = dispatch()
+        if sa_dev.device.type == "cuda":
+            # The rounds' end on the device: the download is timed alone.
+            torch.cuda.synchronize(sa_dev.device)
+    with span("build.download"):
+        sa_full = sa_dev.cpu().numpy()
+    count("d2h_bytes", sa_full.nbytes if sa_dev.device.type != "cpu" else 0)
     dt = time.perf_counter() - t0
     if stats is not None:
         stats.update(engine=label, n_pad=n_pad0)
@@ -470,7 +509,8 @@ def suffix_array_bytes(data, padding: str = "pow2", index_dtype: str = "u32",
         stats.update(elapsed_s=round(dt, 6),
                      bytes_per_s=round(n / max(dt, 1e-12), 1))
     # Padding suffixes (all-PAD) sort strictly first; drop them.
-    return sa_full[n_pad0 - n:].astype(out_dtype)
+    with span("build.finish"):
+        return sa_full[n_pad0 - n:].astype(out_dtype)
 
 
 # Two-phase routing gate, copied from the JAX package.
@@ -585,11 +625,12 @@ def _periodic_dispatch(arr: np.ndarray, q: int, n_pad: int, index_dtype,
     """Build closure for a verified exact-period corpus: the device SA of
     the 3q-1-byte V plus the closed-form expansion."""
     n = int(arr.size)
-    v = np.concatenate([arr[:2 * q], arr[n - q + 1:]])
-    b_v = bucket_size(int(v.size))
-    v_pad = np.full((b_v,), PAD, np.int32)
-    v_pad[:v.size] = v
-    v_dev = torch.from_numpy(v_pad).to(device)
+    with span("build.pack"):
+        v = np.concatenate([arr[:2 * q], arr[n - q + 1:]])
+        b_v = bucket_size(int(v.size))
+        v_pad = np.full((b_v,), PAD, np.int32)
+        v_pad[:v.size] = v
+    v_dev = _upload(v_pad, device)
     iw = pick_init_words(b_v)
 
     def dispatch():
@@ -598,6 +639,15 @@ def _periodic_dispatch(arr: np.ndarray, q: int, n_pad: int, index_dtype,
         return _periodic_expand(sa_v, q, n, n_pad)
 
     return dispatch, f"periodic(q={q})"
+
+
+def _upload(host: np.ndarray, device) -> torch.Tensor:
+    """A staged host array on ``device``: one pageable copy, the span
+    ``build.upload``."""
+    with span("build.upload"):
+        out = torch.from_numpy(host).to(device)
+    count("h2d_bytes", host.nbytes if out.device.type != "cpu" else 0)
+    return out
 
 
 def device_build_closure(arr: np.ndarray, n_pad: int, index_dtype=I32,
@@ -614,7 +664,8 @@ def device_build_closure(arr: np.ndarray, n_pad: int, index_dtype=I32,
     n = int(arr.shape[0])
     lcp_lb = None
     if n_pad >= ADAPTIVE_PACK_MIN:
-        cand0, best = _period_probe(arr)
+        with span("build.probe"):
+            cand0, best = _period_probe(arr)
         if cand0 is not None:
             p0, cnt0, first0, _ = cand0
             lcp_lb = first0  # first defect (or n - p0 when exact)
@@ -637,9 +688,11 @@ def device_build_closure(arr: np.ndarray, n_pad: int, index_dtype=I32,
                                                 device=dev)
                 if disp is not None:
                     return disp
-    plan, sigma, repeat_hit = (
-        _adaptive_plan(arr, n_pad, with_meta=True, lcp_lb=lcp_lb)
-        if n_pad >= ADAPTIVE_PACK_MIN else (None, 0, False))
+    plan, sigma, repeat_hit = None, 0, False
+    if n_pad >= ADAPTIVE_PACK_MIN:
+        with span("build.plan"):
+            plan, sigma, repeat_hit = _adaptive_plan(
+                arr, n_pad, with_meta=True, lcp_lb=lcp_lb)
     two_phase = n_pad >= TWO_PHASE_MIN and (
         TWO_PHASE_FORCE or plan is None
         or (sigma >= TWO_PHASE_SIGMA_MIN and not repeat_hit))
@@ -657,9 +710,10 @@ def device_build_closure(arr: np.ndarray, n_pad: int, index_dtype=I32,
 
     if plan is not None:
         lut, bits, cpw, n_words = plan
-        codes = np.zeros((n_pad,), dtype=np.int32)
-        codes[:n] = lut[arr]
-        c_dev = torch.from_numpy(codes).to(dev)
+        with span("build.pack"):
+            codes = np.zeros((n_pad,), dtype=np.int32)
+            codes[:n] = lut[arr]
+        c_dev = _upload(codes, dev)
         label = f"adaptive({bits}b x {cpw * n_words}ch)"
         if stats is not None:
             stats.update(h0=cpw * n_words)
@@ -671,9 +725,10 @@ def device_build_closure(arr: np.ndarray, n_pad: int, index_dtype=I32,
         return (lambda: classic(lambda ws: _suffix_array_packed(
             c_dev, n_words, bits, cpw, index_dtype=index_dtype,
             with_stats=ws)), label)
-    padded = np.full((n_pad,), PAD, dtype=np.int32)
-    padded[:n] = arr
-    t_dev = torch.from_numpy(padded).to(dev)
+    with span("build.pack"):
+        padded = np.full((n_pad,), PAD, dtype=np.int32)
+        padded[:n] = arr
+    t_dev = _upload(padded, dev)
     iw = pick_init_words(n_pad)
     label = f"ladder({iw}w)"
     if stats is not None:

@@ -25,10 +25,19 @@ Protocol (one JSON object per line):
     {"id": 1, "op": "positions", "q": "quick"}
     {"id": 2, "op": "count", "q": ["quick", "fox"]}
 
-ops: positions | count | contains | any_position | info | ping.
+ops: positions | count | contains | any_position | info | ping | stats.
 ``q`` is a string or list of strings; binary queries use ``q_b64``
 (base64, string or list). Responses echo ``id`` and carry ``result``
 (per-query list when the request was a list) or ``error``.
+
+``{"op": "stats"}`` answers the Batcher's readings: ``drains`` and
+``queries`` since it started, ``queries_per_drain``, and the p50 and p99
+of the queue wait (``queue_wait_ms_p50``, ``queue_wait_ms_p99``: from a
+request's ``submit`` to the start of its drain, over the last
+STATS_WINDOW requests) and of the drain time (``drain_ms_p50``,
+``drain_ms_p99``, over the last STATS_WINDOW drains). Each drain is a
+``serve.drain`` root of the recorder (utils/profiling.py; attrs
+``requests`` and ``queries``). Without a Batcher every reading is 0.
 """
 
 from __future__ import annotations
@@ -38,17 +47,23 @@ import json
 import sys
 import threading
 import time
+from collections import deque
 
 import numpy as np
+
+from suffix_torch.utils.profiling import root
 
 # Largest accepted JSONL request line (TCP): bounds memory per connection
 # against unterminated streams. 16 MiB comfortably fits MAX_QUERY_BATCH
 # b64-encoded queries; oversized lines drop the connection (framing lost).
 MAX_LINE = 1 << 24
 
+# Requests (queue waits) and drains (drain times) the stats op reads.
+STATS_WINDOW = 4096
+
 
 class _Pending:
-    __slots__ = ("queries", "event", "starts", "counts", "error")
+    __slots__ = ("queries", "event", "starts", "counts", "error", "t_submit")
 
     def __init__(self, queries):
         self.queries = queries
@@ -56,6 +71,22 @@ class _Pending:
         self.starts = None
         self.counts = None
         self.error = None
+        self.t_submit = time.time_ns()
+
+
+def _stats(drains: int = 0, queries: int = 0, waits_ms=(),
+           drain_ms=()) -> dict:
+    """The stats op's answer."""
+
+    def pct(v, q):
+        return float(np.percentile(v, q)) if len(v) else 0.0
+
+    return {"drains": drains, "queries": queries,
+            "queries_per_drain": queries / drains if drains else 0.0,
+            "queue_wait_ms_p50": pct(waits_ms, 50),
+            "queue_wait_ms_p99": pct(waits_ms, 99),
+            "drain_ms_p50": pct(drain_ms, 50),
+            "drain_ms_p99": pct(drain_ms, 99)}
 
 
 class Batcher:
@@ -63,6 +94,7 @@ class Batcher:
 
     ``submit`` blocks until the request's queries were part of a flushed
     batch and returns (starts, counts) for exactly those queries.
+    ``stats()`` is the stats op's answer.
     """
 
     def __init__(self, table, max_batch: int = 65536, max_wait_ms: float = 2.0):
@@ -74,6 +106,10 @@ class Batcher:
         self._queued = 0
         self._wake = threading.Condition(self._lock)
         self._stop = False
+        self._stats_lock = threading.Lock()
+        self._drains = self._queries = 0
+        self._waits_ms: deque = deque(maxlen=STATS_WINDOW)
+        self._drain_ms: deque = deque(maxlen=STATS_WINDOW)
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
@@ -91,6 +127,11 @@ class Batcher:
         if p.error is not None:
             raise p.error
         return p.starts, p.counts
+
+    def stats(self) -> dict:
+        with self._stats_lock:
+            return _stats(self._drains, self._queries, list(self._waits_ms),
+                          list(self._drain_ms))
 
     def close(self):
         with self._wake:
@@ -116,20 +157,31 @@ class Batcher:
                         break
                     self._wake.wait(timeout=remaining)
                 drain, self._queue = self._queue, []
-                self._queued = 0
+                nq, self._queued = self._queued, 0
+            r = root("serve.drain", requests=len(drain), queries=nq)
             try:  # the WHOLE drain body: a waiter must never hang
-                flat = [q for p in drain for q in p.queries]
-                starts, counts = self._table._bounds_batch(flat)
-                off = 0
-                for p in drain:
-                    k = len(p.queries)
-                    p.starts = np.asarray(starts[off:off + k])
-                    p.counts = np.asarray(counts[off:off + k])
-                    off += k
+                with r:
+                    flat = [q for p in drain for q in p.queries]
+                    starts, counts = self._table._bounds_batch(flat)
+                    off = 0
+                    for p in drain:
+                        k = len(p.queries)
+                        p.starts = np.asarray(starts[off:off + k])
+                        p.counts = np.asarray(counts[off:off + k])
+                        off += k
             except BaseException as e:  # propagate to every waiter
                 for p in drain:
                     p.error = e
             finally:
+                # Counted before any waiter wakes: a client that has its
+                # answer finds its drain in stats().
+                with self._stats_lock:
+                    self._drains += 1
+                    self._queries += nq
+                    if r.end_ns is not None:
+                        self._waits_ms.extend(
+                            (r.start_ns - p.t_submit) / 1e6 for p in drain)
+                        self._drain_ms.append(r.seconds * 1e3)
                 for p in drain:
                     p.event.set()
 
@@ -168,6 +220,9 @@ def handle_request(table, batcher: Batcher | None, req: dict) -> dict:
             return {"id": rid, "result": "pong"}
         if op == "info":
             return {"id": rid, "result": {"bytes": table.len()}}
+        if op == "stats":
+            return {"id": rid, "result": (_stats() if batcher is None
+                                          else batcher.stats())}
         if op not in ("positions", "count", "contains", "any_position"):
             return {"id": rid, "error": f"unknown op: {op}"}
         queries, was_list = _decode_queries(req)

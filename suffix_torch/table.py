@@ -45,6 +45,7 @@ from suffix_torch.ops import search2
 from suffix_torch.ops.naive import naive_table
 from suffix_torch.ops.padding import PAD, bucket_size
 from suffix_torch.ops.search import pack_queries
+from suffix_torch.utils.profiling import annotate, root, span
 
 MAX_TEXT_LEN = 0xFFFFFFFF  # u32 offsets, same cap as the reference
 
@@ -198,6 +199,11 @@ class SuffixTable:
         ``collect_stats=True`` builds through utils/metrics.py and attaches
         its stats dict as ``build_stats`` (route label, family, rounds,
         bytes/s, ...).
+
+        Each call but the small-build fast path is a ``build`` root of the
+        recorder (utils/profiling.py; attrs ``engine``, ``route``, ``n``,
+        ``n_pad``); the device engine's layers are its spans and counters
+        (ops/prefix_doubling.py).
         """
         if (type(text) is bytes and not collect_stats
                 and index_dtype == "u32"
@@ -212,34 +218,42 @@ class SuffixTable:
                 if len(text) > MAX_TEXT_LEN:
                     raise ValueError("text is too large (max 2^32 - 1 bytes)")
                 return cls._new_small(text, fn(text), resolve_device(device))
-        dev = resolve_device(device)
-        raw, was_str = _as_bytes(text)
-        if engine == "auto":
-            engine = "device"
-            if len(raw) <= AUTO_NATIVE_MAX and native.available():
-                engine = "native"
-        if engine not in ("device", "sais", "native"):
-            raise ValueError(f"unknown engine: {engine!r}")
-        if len(raw) > MAX_TEXT_LEN:
-            raise ValueError("text is too large (max 2^32 - 1 bytes)")
-        if collect_stats:
-            from suffix_torch.utils.metrics import build_stats
+        with root("build", engine=engine):
+            dev = resolve_device(device)
+            raw, was_str = _as_bytes(text)
+            if engine == "auto":
+                engine = "device"
+                if len(raw) <= AUTO_NATIVE_MAX and native.available():
+                    engine = "native"
+            if engine not in ("device", "sais", "native"):
+                raise ValueError(f"unknown engine: {engine!r}")
+            if len(raw) > MAX_TEXT_LEN:
+                raise ValueError("text is too large (max 2^32 - 1 bytes)")
+            annotate(engine=engine, n=len(raw))
+            if collect_stats:
+                from suffix_torch.utils.metrics import build_stats
 
-            table, stats = build_stats(raw, engine=engine,
-                                       index_dtype=index_dtype,
-                                       padding=padding, device=dev)
-            st = cls(raw, table.astype(np.uint32), _was_str=was_str,
-                     device=dev)
-            st.build_stats = stats
-            return st
-        if engine == "device":
-            table = prefix_doubling.suffix_array_bytes(
-                raw, padding=padding, index_dtype=index_dtype, device=dev)
-        elif engine == "sais":
-            table = sais.suffix_array_sais_recursive(raw, device=dev)
-        else:
-            table = native.sais(raw)
-        return cls(raw, table, _was_str=was_str, device=dev)
+                table, stats = build_stats(raw, engine=engine,
+                                           index_dtype=index_dtype,
+                                           padding=padding, device=dev)
+                annotate(route=stats["engine"], n_pad=stats["n_pad"])
+                with span("build.finish"):
+                    st = cls(raw, table.astype(np.uint32), _was_str=was_str,
+                             device=dev)
+                st.build_stats = stats
+                return st
+            if engine == "device":
+                table = prefix_doubling.suffix_array_bytes(
+                    raw, padding=padding, index_dtype=index_dtype, device=dev)
+            elif engine == "sais":
+                annotate(route="sais-device",
+                         n_pad=bucket_size(max(len(raw), 1)))
+                table = sais.suffix_array_sais_recursive(raw, device=dev)
+            else:
+                annotate(route="native-sais", n_pad=len(raw))
+                table = native.sais(raw)
+            with span("build.finish"):
+                return cls(raw, table, _was_str=was_str, device=dev)
 
     @classmethod
     def new_naive(cls, text, device=None) -> "SuffixTable":

@@ -1,8 +1,9 @@
 """The port's auxiliary modules against the JAX package's, mirroring
 ``tests/test_aux.py``: ``BuildConfig`` / ``build_index``
-(``suffix_torch/utils/config.py``), ``Profile``, ``timed_build`` and
-``device_trace`` (``utils/profiling.py``) on the CPU, ``warm`` and
-``warm_sharded`` (``utils/warmup.py``) at a small size, and the examples
+(``suffix_torch/utils/config.py``), ``device_trace``
+(``utils/profiling.py``; its recorder in ``test_torch_profiling.py``) on
+the CPU, ``warm`` and ``warm_sharded`` (``utils/warmup.py``) at a small
+size, and the examples
 (``suffix_torch/examples/``) run on the CPU. The sharded build of
 ``BuildConfig(sharded=True)`` and ``warm_sharded`` run over 4 gloo ranks
 started for the call (``parallel/launch.py``). Tolerance: exact
@@ -22,8 +23,7 @@ torch.set_num_threads(1)
 
 from suffix_torch.utils.config import (DEFAULT_BUILD, DEFAULT_QUERY,  # noqa: E402
                                        BuildConfig, QueryConfig, build_index)
-from suffix_torch.utils.profiling import (Profile, device_trace,  # noqa: E402
-                                          timed_build)
+from suffix_torch.utils.profiling import device_trace  # noqa: E402
 from suffix_torch.utils.warmup import warm, warm_sharded  # noqa: E402
 
 
@@ -72,33 +72,6 @@ def test_config_sharded_raises(jax_config, tmp_path):
         f"ck.npz.p{r}" for r in range(4)]
 
 
-def test_profile_report():
-    st, prof = timed_build(b"the quick brown fox was quick.", device="cpu")
-    assert st.contains("quick")
-    assert [p.name for p in prof.passes] == ["suffix_array.build",
-                                             "device_upload"]
-    rep = prof.report()
-    assert "suffix_array.build" in rep and rep.splitlines()[-1].startswith(
-        "TOTAL")
-    assert prof.total_seconds() > 0
-    rows = json.loads(prof.to_json())
-    assert rows[0]["bytes"] == 30 and set(rows[0]) == {"pass", "seconds",
-                                                       "bytes"}
-
-
-def test_profile_span_sync_and_record():
-    prof = Profile()
-    x = torch.arange(100)
-    with prof.span("op", bytes_processed=400, sync=x):
-        y = x * 2
-    with prof.span("tree", sync={"a": [y, (x,)]}):
-        pass
-    prof.record("host", 0.5, bytes_processed=10**6)
-    assert prof.passes[0].mb_per_s >= 0
-    assert prof.passes[2].mb_per_s == pytest.approx(2.0)
-    assert [p.name for p in prof.passes] == ["op", "tree", "host"]
-
-
 def test_device_trace_writes_chrome_trace(tmp_path):
     from torch.profiler import record_function
 
@@ -109,13 +82,6 @@ def test_device_trace_writes_chrome_trace(tmp_path):
     trace = json.loads((log_dir / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert "P1_initial_sort" in names
-
-
-def test_timed_build_needs_a_card_by_default():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        timed_build(b"banana")
 
 
 def test_warm_small(capsys):

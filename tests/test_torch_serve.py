@@ -5,7 +5,8 @@ types, unknown ops, ``ping`` and ``info``) with the same JSON, errors
 included; ``serve_stdio`` writes the same lines; the ``Batcher`` merges
 concurrent requests and hands each its own bounds; ``serve_tcp`` on port
 0 answers and drops a connection whose line is too long, as JAX's does;
-concurrent first calls build the device index once. JAX is imported by a
+concurrent first calls build the device index once; the ``stats`` op
+reads the Batcher's drains and queue waits. JAX is imported by a
 fixture, so the CUDA leg (marker ``gpu``: a TCP round trip on a CUDA
 table) runs without it:
 ``python -m pytest tests/test_torch_serve.py -m gpu --noconftest``.
@@ -163,6 +164,47 @@ def test_batcher_coalesces_and_demuxes(table, monkeypatch):
     assert len(s) == 0 and len(c) == 0
     with pytest.raises(RuntimeError, match="closed"):
         empty.submit(["x"])
+
+
+def test_batcher_stats_and_drain_roots(table):
+    from suffix_torch.utils.profiling import finished
+
+    zeros = handle_request(table, None, {"id": 3, "op": "stats"})
+    assert zeros["id"] == 3 and set(zeros["result"]) == {
+        "drains", "queries", "queries_per_drain", "queue_wait_ms_p50",
+        "queue_wait_ms_p99", "drain_ms_p50", "drain_ms_p99"}
+    assert not any(zeros["result"].values())
+    seen = {r["id"] for r in finished("serve.drain")}
+    b = Batcher(table, max_batch=4096, max_wait_ms=50.0)
+    gate = threading.Barrier(12)
+    sizes = [1 + i % 4 for i in range(12)]
+
+    def client(k):
+        gate.wait(timeout=30)
+        b.submit(["quick", "fox", "the", "zebra"][:k])
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in sizes]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        got = handle_request(table, b, {"op": "stats"})["result"]
+    finally:
+        b.close()
+    assert got == b.stats()
+    drains = [r for r in finished("serve.drain") if r["id"] not in seen]
+    assert got["drains"] == len(drains) < 12
+    assert got["queries"] == sum(sizes) == sum(
+        r["attrs"]["queries"] for r in drains)
+    assert sum(r["attrs"]["requests"] for r in drains) == 12
+    assert got["queries_per_drain"] == pytest.approx(sum(sizes) / len(drains))
+    assert 0 <= got["queue_wait_ms_p50"] <= got["queue_wait_ms_p99"]
+    assert 0 < got["drain_ms_p50"] <= got["drain_ms_p99"]
+    assert got["drain_ms_p99"] <= 1e3 * max(r["seconds"] for r in drains)
+    # The first request of a drain waits the collection window out.
+    assert got["queue_wait_ms_p99"] >= 40.0
 
 
 def _exchange(addr, lines):
