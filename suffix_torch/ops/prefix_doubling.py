@@ -10,6 +10,16 @@ return the same array:
            sort, dense rerank by a flag cumsum, k *= 4;
   stop when every rank is distinct.
 
+One departure from the JAX package: the padding slots (positions ``>= n``
+of the padded text) take distinct negative initial keys, shortest padding
+suffix lowest (``_key_pads``). In the JAX package they tie in groups of
+``h0`` that no round splits, so a padded text runs full-width rounds until
+``k >= 2 n_pad``; here the rounds stop once the text's own suffixes are
+distinct. On a padded text the round trajectory (``rounds``, ``h_final``,
+the tie masses) is therefore shorter than the JAX package's; the route
+labels and the arrays stay equal, and a text with no padding slot (``n`` a
+power of two) takes the same trajectory in both.
+
 Routes (``device_build_closure``): the exact-periodic closed form, the
 patched near-periodic engine (``ops/patched.py``; a corpus whose host
 tables are over budget falls through), the alphabet-adaptive dense-coded
@@ -40,8 +50,10 @@ inside ``SuffixTable.new``'s ``build`` root: ``build.probe``,
 end), ``build.download`` and ``build.finish`` in ``suffix_array_bytes``;
 ``build.readback`` around each host read of a device value. Counters:
 ``rounds`` (quadrupling rounds of both phases), ``host_syncs`` (one a
-readback), ``h2d_bytes`` and ``d2h_bytes`` (the pageable copies; 0 on the
-CPU, where nothing is copied). The patched route's rotation-width build
+readback), ``pad_slots`` (padding slots given distinct keys, read with
+the initial sort's readback; 0 when the text fills its bucket),
+``h2d_bytes`` and ``d2h_bytes`` (the pageable copies; 0 on the CPU, where
+nothing is copied). The patched route's rotation-width build
 (``ops/patched.py``) is a ``build.rotation`` root of its own, inside the
 job's ``build.probe``.
 
@@ -155,26 +167,50 @@ def _readback():
         yield
 
 
-def _rerank(cols, dtype, with_mass: bool):
+def _rerank(cols, dtype, with_mass: bool, pads=None):
     """(dense, done, mass) of sorted key columns: dense ranks, whether
     every row is distinct, and (``with_mass``) the tie mass, with one
-    readback."""
+    readback. ``pads``, a device count, rides in the same readback into
+    the counter ``pad_slots``."""
     diff = _adjacent_diff(cols)
     dense = _dense_rank(diff, dtype)
     probe = [dense[-1]] + ([_tie_mass(diff)] if with_mass else [])
+    if pads is not None:
+        probe.append(pads)
     with _readback():
         read = torch.stack([p.to(torch.int64) for p in probe]).tolist()
+    if pads is not None:
+        count("pad_slots", read[-1])
     return (dense, read[0] == dense.shape[0] - 1,
             read[1] if with_mass else None)
 
 
+def _key_pads(words) -> torch.Tensor:
+    """Give every padding slot a distinct negative word 0, in place, and
+    return their number (a device scalar).
+
+    A padding slot is one whose word 0 is 0: every character it packs is
+    PAD or past the end, while a real byte codes to at least 1. The slots
+    ``>= n`` get ``n - 1 - i``, so the shortest padding suffix is the
+    lowest, the order of the padded string with past-the-end lowest, and
+    every real suffix stays above them. Without this the padding suffixes
+    tie in groups of ``h0`` that no round splits. ``words`` are the
+    engine's own tensors, made from the staged input for this dispatch."""
+    w0 = words[0]
+    below = torch.cumsum(w0 == 0, 0, dtype=w0.dtype)
+    w0.sub_(below)
+    return below[-1]
+
+
 def _initial_round(words, idx: torch.Tensor, with_mass: bool):
-    """Sort by the initial words. Returns (rank, sa, dense, done, mass):
-    ``rank`` in text order (the dense ranks themselves when done)."""
+    """Key the padding slots, then sort by the initial words. Returns
+    (rank, sa, dense, done, mass): ``rank`` in text order (the dense
+    ranks themselves when done)."""
     with record_function("P1_initial_sort"):
+        pads = _key_pads(words)
         *cols, sa = lexsort(words, (idx,))
     with record_function("P2_initial_rank"):
-        dense, done, mass = _rerank(cols, idx.dtype, with_mass)
+        dense, done, mass = _rerank(cols, idx.dtype, with_mass, pads)
         rank = dense if done else _invert_permutation(sa, dense)
     return rank, sa, dense, done, mass
 
@@ -370,7 +406,10 @@ def _two_phase_build(phase1_state, n_pad: int, stats=None) -> torch.Tensor:
 def _suffix_array_padded(text: torch.Tensor, init_words: int = INIT_WORDS,
                          index_dtype=I32, with_stats: bool = False):
     """Suffix array of a PAD-padded int32 text: the full permutation of
-    [0, n_pad), whose first ``pad_len`` slots are the all-PAD suffixes."""
+    [0, n_pad), the exact suffix array of the padded sequence with
+    past-the-end lowest. Its first ``pad_len`` slots are the all-PAD
+    suffixes in a defined order, shortest first (``n_pad - 1`` down to
+    ``n``); the text's suffixes follow."""
     words = _initial_words(text, init_words)
     return _doubling_core(words, 3 * init_words, index_dtype,
                           with_stats=with_stats)

@@ -29,6 +29,8 @@ from suffix_torch import SuffixTable  # noqa: E402
 from suffix_torch.cli import main  # noqa: E402
 from suffix_torch.utils import checkpoint  # noqa: E402
 
+import doubling_oracle as oracle  # noqa: E402
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIXTURE = str(ROOT / "tests" / "fixtures" / "AP009048_10000.fasta")
 # Fields of a build-stats line that the run itself decides.
@@ -81,8 +83,27 @@ def test_output_matches_jax(jax_cli, capsys, argv):
     jax_main, _ = jax_cli
     got = run(main, ["--platform", "cpu", *argv], capsys)
     want = run(jax_main, ["--platform", "cpu", *argv], capsys)
-    assert stable(got) == stable(want)
+    got_lines, want_lines = stable(got), stable(want)
+    for line, jline in zip(got_lines, want_lines):
+        if isinstance(line, tuple):
+            _padded_trajectory_to_oracle(argv[1], line[1], jline[1])
+    assert got_lines == want_lines
     assert got.count("\n") == want.count("\n")
+
+
+def _padded_trajectory_to_oracle(path: str, stats: dict, jstats: dict):
+    """A device build over padding slots: the port keys them apart, so its
+    trajectory keys are held to the LCP oracle and taken out of both
+    stats lines; the JAX package's rounds also run on the padding's ties."""
+    if (stats.get("engine_family") not in ("classic", "two_phase")
+            or stats["n_bytes"] == stats["n_pad"]):
+        return
+    raw = pathlib.Path(path).read_bytes()
+    sa = SuffixTable.new(raw, engine="native", device="cpu").table()
+    traj = {k: stats.pop(k) for k in oracle.TRAJECTORY_KEYS if k in stats}
+    assert traj == oracle.trajectory(raw, sa, stats)
+    for k in oracle.TRAJECTORY_KEYS:
+        jstats.pop(k, None)
 
 
 def test_save_search_info_match_jax(jax_cli, capsys, tmp_path):

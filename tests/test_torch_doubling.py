@@ -30,7 +30,11 @@ torch.set_num_threads(1)
 from suffix_torch import SuffixTable  # noqa: E402
 from suffix_torch.ops import prefix_doubling as pd  # noqa: E402
 from suffix_torch.ops.naive import naive_table  # noqa: E402
+from suffix_torch.ops.padding import PAD  # noqa: E402
+from suffix_torch.utils import profiling as P  # noqa: E402
 from suffix_torch.utils.verify import verify_suffix_array  # noqa: E402
+
+import doubling_oracle as oracle  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIXTURES = ROOT / "tests" / "fixtures"
@@ -359,6 +363,12 @@ def test_table_matches_jax(jpd, dna_10k):
                               suffix_tpu.SuffixTable.new(text).table())
 
 
+def _fixture_pow2() -> bytes:
+    """2^17 bytes of the 100 KB fixture: its head again after its end."""
+    raw = (FIXTURES / "AP009048_100000.fasta").read_bytes()
+    return (raw + raw)[:1 << 17]
+
+
 STATS_CASES = [
     ("fixture_10k", lambda: (FIXTURES / "AP009048_10000.fasta").read_bytes(),
      {}),
@@ -373,12 +383,26 @@ STATS_CASES = [
     ("periodic", lambda: _tiled(b"abracadabra-zyx!", 700).tobytes(),
      {"ADAPTIVE_PACK_MIN": 16}),
     ("empty", lambda: b"", {}),
+    # The same classes with no padding slot (n a power of two, n_pad = n).
+    ("fixture_8k", lambda: (FIXTURES / "AP009048_10000.fasta")
+     .read_bytes()[:1 << 13], {}),
+    ("fixture_128k", _fixture_pow2, {}),
+    ("two_phase_pow2", lambda: _planted(np.random.default_rng(4), 4096)
+     .tobytes(), {"ADAPTIVE_PACK_MIN": 16, "TWO_PHASE_MIN": 16,
+                  "TWO_PHASE_FORCE": True}),
+    ("two_phase_ladder_pow2", lambda: np.random.default_rng(6).integers(
+        0, 256, 4096, dtype=np.uint8).tobytes(),
+     {"TWO_PHASE_MIN": 16, "TWO_PHASE_FORCE": True}),
+    ("min_bucket", lambda: b"abcabcabcabcabca", {}),
 ]
 
 
 @pytest.mark.parametrize("name,text,gate", STATS_CASES,
                          ids=[c[0] for c in STATS_CASES])
 def test_collect_stats_match_jax(jpd, gates, name, text, gate):
+    """The routing keys and the array are the JAX package's; the
+    trajectory is the LCP oracle's. The padding slots take distinct keys
+    in the port only, so the trajectories agree where there is none."""
     from suffix_tpu.utils.metrics import build_stats
 
     gates(**gate)
@@ -391,7 +415,70 @@ def test_collect_stats_match_jax(jpd, gates, name, text, gate):
         assert key in got
         got.pop(key)
         want.pop(key)
-    assert got == want
+    if got.get("engine_family") in ("classic", "two_phase"):
+        traj = {k: got[k] for k in oracle.TRAJECTORY_KEYS if k in got}
+        assert traj == oracle.trajectory(raw, sa, got)
+    if len(raw) == got["n_pad"]:
+        assert got == want
+    else:
+        assert ({k: v for k, v in got.items()
+                 if k not in oracle.TRAJECTORY_KEYS}
+                == {k: v for k, v in want.items()
+                    if k not in oracle.TRAJECTORY_KEYS})
+
+
+def _with_copies(rng, n: int, sigma: int) -> np.ndarray:
+    """Random bytes with a few copies of up to 300 bytes planted."""
+    arr = rng.integers(0, sigma, n, dtype=np.uint8) + 97
+    for _ in range(3):
+        length = int(rng.integers(20, min(300, n // 3)))
+        src, dst = rng.integers(0, n - length, 2)
+        arr[dst:dst + length] = arr[src:src + length]
+    return arr
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_rounds_do_not_depend_on_padding(seed):
+    """A text takes the rounds its own LCPs need under either padding:
+    the padding slots never tie."""
+    rng = np.random.default_rng(100 + seed)
+    arr = _with_copies(rng, (1100, 1500, 2300, 2900)[seed],
+                       (2, 4, 26)[seed % 3])
+    raw = arr.tobytes()
+    runs = {}
+    for padding in ("pow2", "fine"):
+        stats = {}
+        before = P.finished("job")
+        with P.root("job"):
+            sa = pd.suffix_array_bytes(arr, padding=padding, device="cpu",
+                                       stats=stats)
+        (job,) = [r for r in P.finished("job")
+                  if r["id"] not in {b["id"] for b in before}]
+        assert np.array_equal(sa, naive_table(raw))
+        want = oracle.trajectory(raw, sa, stats)
+        assert stats["rounds"] == want["rounds"] >= 1
+        assert job["counters"].get("rounds", 0) == want["rounds"]
+        runs[padding] = stats
+    assert runs["pow2"]["n_pad"] != runs["fine"]["n_pad"]
+    assert runs["pow2"]["rounds"] == runs["fine"]["rounds"]
+    assert runs["pow2"]["tie_trajectory"] == runs["fine"]["tie_trajectory"]
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 16, 100, 600])
+def test_padded_sa_orders_the_padding(n):
+    """``_suffix_array_padded`` is the suffix array of the whole padded
+    sequence: the padding suffixes first, shortest first, then the text's."""
+    rng = np.random.default_rng(n)
+    n_pad = pd.bucket_size(n)
+    padded = np.full(n_pad, PAD, np.int32)
+    padded[:n] = rng.integers(97, 100, n)
+    if n >= 100:
+        padded[60:90] = padded[0:30]
+    for iw in (2, 4):
+        got = pd._suffix_array_padded(torch.from_numpy(padded), iw).numpy()
+        want = sorted(range(n_pad), key=lambda i: padded[i:].tolist())
+        assert got.tolist() == want
+        assert got[:n_pad - n].tolist() == list(range(n_pad - 1, n - 1, -1))
 
 
 def test_last_flag_index_matches_cummax(jpd):

@@ -24,6 +24,8 @@ from suffix_torch import SuffixTable  # noqa: E402
 from suffix_torch.utils import metrics  # noqa: E402
 from suffix_torch.utils.verify import verify_suffix_array  # noqa: E402
 
+import doubling_oracle as oracle  # noqa: E402
+
 CASES = ["banana", "mississippi", "", "a", "aa", "aaaa", "abab",
          "tgtgtgtgcaccg", "\x00\x00a", "☃abc☃"]
 FORMS = [False, "cpu"]  # the host form, the device form on the CPU
@@ -198,10 +200,26 @@ def test_build_stats_engines(jax_side):
     _same_stats(stats, jstats)
     with pytest.raises(ValueError, match="unknown engine"):
         metrics.build_stats(b"abc", engine="naive", device="cpu")
-    _, stats = metrics.build_stats(b"abc", engine="device",
-                                   index_dtype="u64", device="cpu")
+    # u64 over 13 padding slots in 16: the JAX package's routing keys, the
+    # LCP oracle's trajectory (the padding slots take distinct keys in the
+    # port only); with no padding slot, the JAX package's stats whole.
+    sa, stats = metrics.build_stats(b"abc", engine="device",
+                                    index_dtype="u64", device="cpu")
     _, jstats = jax_side[2].build_stats(b"abc", engine="device",
                                         index_dtype="u64")
+    traj = {k: stats[k] for k in oracle.TRAJECTORY_KEYS if k in stats}
+    assert traj == oracle.trajectory(b"abc", sa, stats)
+    assert traj["rounds"] == 0
+    _same_stats({k: v for k, v in stats.items() if k not in traj},
+                {k: v for k, v in jstats.items() if k not in traj})
+    raw = b"abcabcabcabcabca"
+    sa, stats = metrics.build_stats(raw, engine="device", index_dtype="u64",
+                                    device="cpu")
+    _, jstats = jax_side[2].build_stats(raw, engine="device",
+                                        index_dtype="u64")
+    assert stats["n_pad"] == len(raw) and stats["rounds"] == 1
+    assert stats["tie_trajectory"] == oracle.trajectory(
+        raw, sa, stats)["tie_trajectory"]
     _same_stats(stats, jstats)
 
 
