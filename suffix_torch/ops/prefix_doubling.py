@@ -451,12 +451,15 @@ def _repeat_lcp_lower_bound(arr: np.ndarray) -> int | None:
 
 
 def _adaptive_plan(arr: np.ndarray, n_pad: int, with_meta: bool = False,
-                   lcp_lb="auto"):
+                   lcp_lb="auto", counts: np.ndarray | None = None):
     """(lut, bits, cpw, n_words) for the dense-coded initial sort, or
     None when the byte ladder is at least as good. ``with_meta=True``
     returns (plan, sigma, repeat_hit). ``lcp_lb``: "auto" probes for a
-    long self-repeat; callers that probed pass the bound (or None)."""
-    counts = np.bincount(arr, minlength=256)
+    long self-repeat; callers that probed pass the bound (or None).
+    ``counts``: the 256 byte counts of ``arr``, where the caller has them
+    (the sharded build sums its ranks' blocks); else counted here."""
+    if counts is None:
+        counts = np.bincount(arr, minlength=256)
     present = np.flatnonzero(counts)
     sigma = int(present.size)
     if sigma < 1:

@@ -7,8 +7,10 @@ rank on its own block:
 - each round's global sort of (rank, rank[i+k], rank[i+2k], rank[i+3k],
   i) rows is a **block-bitonic sort**: every rank sorts its L rows, then
   log^2(D) merge-split stages exchange whole blocks with a partner
-  (``j ^ stride``), sort the 2L rows and keep the low or the high half by
-  the bitonic direction bits;
+  (``j ^ stride``) and keep the low or the high half of the 2L rows by
+  the bitonic direction bits: both partners find the same merge-path
+  split of the two sorted blocks, and each sorts only the L rows it
+  keeps;
 - the dense re-rank after the sort takes the left neighbour's last row
   (one transfer), a local cumsum and the exclusive sum of every rank's
   flag count (an all-gather of one number a rank);
@@ -26,11 +28,24 @@ collective; here each rank posts its sends and receives of one exchange
 in one ``batch_isend_irecv``, and a rank with nothing to send or receive
 posts nothing. Sorts are ``ops/sort.py::lexsort``: the global row index
 ``gidx`` is a key, so the key set is a total order and both partners of
-a merge-split agree on the merged order.
+a merge-split agree on the split.
 
 The result is bit-identical to the single-device engine: the suffix array
 is the unique byte-lexicographic permutation, PAD (-1) below every byte
 acting as the implicit sentinel. Every rank returns the whole array.
+
+Each ``build_table`` call is a ``sharded_build`` root of the recorder
+(``utils/profiling.py``) on every rank, with attributes ``rank``,
+``world``, ``n``, ``n_total`` and ``route`` (``coded`` or ``packed``;
+``device`` for a one-rank mesh, which runs the single-device build). Its
+spans: ``sharded.plan`` (the adaptive plan and its probe),
+``sharded.stage`` (``device_corpus``), ``sharded.rounds`` (the first
+round to the host's read of the last round's ``done``),
+``sharded.exchange`` (each ``_exchange`` and ``_all_gather``),
+``sharded.gather`` (the table's all-gather and copy to the host) and
+``sharded.finish`` (the slice, viewed in the output type). Its counters: ``rounds``,
+``merge_stages``, ``exchange_bytes`` (the bytes this rank sends, point to
+point and in all-gathers) and ``host_syncs``.
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ from suffix_torch.ops.padding import bucket_size
 from suffix_torch.ops.sort import lexsort
 from suffix_torch.parallel.mesh import Mesh
 from suffix_torch.utils.io import device_corpus, open_corpus
+from suffix_torch.utils.profiling import annotate, count, root, span
 
 
 def _local_bucket(n: int, n_dev: int) -> int:
@@ -76,33 +92,67 @@ def _exchange(sends, recvs, mesh: Mesh) -> None:
            for tag, (peer, t) in enumerate(sends)]
     ops += [dist.P2POp(dist.irecv, t, peer, mesh.group, tag)
             for tag, (peer, t) in enumerate(recvs)]
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    with span("sharded.exchange"):
+        count("exchange_bytes", sum(t.nbytes for _, t in sends))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
 
 
-def _bitonic_global_sort(arrays, num_keys: int, n_local: int, mesh: Mesh):
+def _bitonic_global_sort(arrays: list, num_keys: int, n_local: int,
+                         mesh: Mesh):
     """Sort rows held as L per rank globally: afterwards rank d holds
     sorted rows [d * L, (d + 1) * L). The first ``num_keys`` arrays are
-    the keys; they must be a total order (include a unique column)."""
-    arrays = list(lexsort(arrays[:num_keys], arrays[num_keys:]))
+    the keys; they must be a total order (include a unique column). The
+    list ``arrays`` is emptied, so that its columns are freed once the
+    first local sort has read them."""
+    cols = list(lexsort(arrays[:num_keys], arrays[num_keys:]))
+    arrays.clear()
     n_dev, me = mesh.world_size, mesh.rank
     size = 2
     while size <= n_dev:
         stride = size // 2
         while stride >= 1:
             peer = me ^ stride
-            theirs = [torch.empty_like(a) for a in arrays]
-            _exchange([(peer, a) for a in arrays],
+            count("merge_stages")
+            theirs = [torch.empty_like(a) for a in cols]
+            _exchange([(peer, a) for a in cols],
                       [(peer, b) for b in theirs], mesh)
-            both = [torch.cat([a, b]) for a, b in zip(arrays, theirs)]
-            merged = lexsort(both[:num_keys], both[num_keys:])
             keep_low = ((me & size) == 0) == ((me & stride) == 0)
-            arrays = [m[:n_local] if keep_low else m[n_local:]
-                      for m in merged]
+            lower, upper = (cols, theirs) if me < peer else (theirs, cols)
+            kept = _merge_split(lower, upper, num_keys, keep_low)
+            del cols, theirs, lower, upper
+            cols = list(lexsort(kept[:num_keys], kept[num_keys:]))
+            del kept
             stride //= 2
         size *= 2
-    return arrays
+    return cols
+
+
+def _merge_split(lower, upper, num_keys: int, keep_low: bool):
+    """The L rows that one partner of a merge-split keeps, as two sorted
+    runs (unsorted as a whole). ``lower`` and ``upper`` are the lower and
+    the higher rank's sorted blocks, columns of L rows whose first
+    ``num_keys`` are the keys of a total order. The L smallest of the 2L
+    rows are ``lower[:p]`` and ``upper[:L - p]``, where p counts the i
+    with lower[i] < upper[L - 1 - i] (true up to p, false after): the
+    merge path's split, the same on both partners, found on the device
+    with no host sync. The L largest are the rest."""
+    n = lower[0].shape[0]
+    less = None
+    for x, y in zip(reversed(lower[:num_keys]), reversed(upper[:num_keys])):
+        y = y.flip(0)
+        less = x < y if less is None else (x < y) | ((x == y) & less)
+    p = less.sum()
+    del less
+    j = torch.arange(n, device=lower[0].device)
+    if keep_low:  # lower[:p], then upper[:n - p]
+        first = j < p
+        at = (j - p).clamp_(min=0)
+        return [torch.where(first, a, b[at]) for a, b in zip(lower, upper)]
+    first = j < n - p  # lower[p:], then upper[n - p:]
+    at = (j + p).clamp_(max=n - 1)
+    return [torch.where(first, a[at], b) for a, b in zip(lower, upper)]
 
 
 def _left_boundary(cols, mesh: Mesh, fill: int):
@@ -144,8 +194,8 @@ def _halo_fetch3(rank_home: torch.Tensor, k: int, n_local: int,
     past = torch.full_like(rank_home, -1)
     rows = []
     for s, off in shifts:
-        both = torch.cat([blocks.get(s, past), blocks.get(s + 1, past)])
-        rows.append(both[off:off + n_local])
+        rows.append(torch.cat([blocks.get(s, past)[off:],
+                               blocks.get(s + 1, past)[:off]]))
     return tuple(rows)
 
 
@@ -181,7 +231,9 @@ def _all_gather(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
     if mesh.world_size == 1:
         return [x]
     out = [torch.empty_like(x) for _ in range(mesh.world_size)]
-    dist.all_gather(out, x.contiguous(), group=mesh.group)
+    with span("sharded.exchange"):
+        count("exchange_bytes", x.nbytes * (mesh.world_size - 1))
+        dist.all_gather(out, x.contiguous(), group=mesh.group)
     return out
 
 
@@ -200,6 +252,7 @@ def _rerank_and_home(key_cols, idx: torch.Tensor, n_local: int, mesh: Mesh,
     totals = torch.cat(_all_gather(local_cum[-1:], mesh))
     dense = local_cum + totals[:mesh.rank].sum().to(dtype)
     done = int(totals.sum()) + 1 == n_total
+    count("host_syncs")
     _, rank_new = _bitonic_global_sort([idx, dense], 1, n_local, mesh)
     return rank_new, done
 
@@ -214,6 +267,7 @@ def _coded_first_round(codes_local: torch.Tensor, n_local: int, mesh: Mesh,
     """First round over dense-coded words: the global sort by the word
     tuple (and gidx), then the dense re-rank. Returns the state of
     ``_round_body`` with k = n_words * cpw."""
+    count("rounds")
     gidx = _global_index(n_local, mesh, index_dtype, codes_local.device)
     words = _coded_initial_words(codes_local, mesh, n_words, bits, cpw)
     sorted_ops = _bitonic_global_sort(words + [gidx], n_words + 1, n_local,
@@ -237,13 +291,15 @@ def _round_body(rank_home: torch.Tensor, k: int, n_local: int, mesh: Mesh):
     rank[i+2k], rank[i+3k]) orders by 4k characters. Returns (rank_new,
     sa_sorted, next_k, done); sa_sorted is this rank's block of the
     current order (rank d holds ranks [d*L, (d+1)*L))."""
+    count("rounds")
     dtype = rank_home.dtype  # int32, or int64 for u64 builds
     gidx = _global_index(n_local, mesh, dtype, rank_home.device)
     with record_function("D1_halo_shift"):
-        s1, s2, s3 = _halo_fetch3(rank_home, k, n_local, mesh)
+        cols = [rank_home, *_halo_fetch3(rank_home, k, n_local, mesh),
+                gidx]
+    del rank_home, gidx
     with record_function("D2_global_bitonic_sort"):
-        r, c1, c2, c3, idx = _bitonic_global_sort(
-            [rank_home, s1, s2, s3, gidx], 5, n_local, mesh)
+        r, c1, c2, c3, idx = _bitonic_global_sort(cols, 5, n_local, mesh)
     with record_function("D3_rerank_route_home"):
         rank_new, done = _rerank_and_home((r, c1, c2, c3), idx, n_local,
                                           mesh, dtype)
@@ -266,7 +322,9 @@ def _dist_build(block: torch.Tensor, n_local: int, mesh: Mesh,
         # round orders by 12.
         state = _round_body(rank0, 3, n_local, mesh)
     while not state[3] and state[2] < n_total:
-        state = _round_body(state[0], state[2], n_local, mesh)
+        rank, k = state[0], state[2]
+        state = None  # the last round's order is dead
+        state = _round_body(rank, k, n_local, mesh)
     return state[1]
 
 
@@ -292,8 +350,26 @@ def _as_u8(data) -> np.ndarray:
 
 
 def _gather_sa(sa_local: torch.Tensor, mesh: Mesh) -> np.ndarray:
-    """The whole suffix array on every rank, as numpy."""
-    return torch.cat([b.cpu() for b in _all_gather(sa_local, mesh)]).numpy()
+    """The whole suffix array on every rank, as numpy: each gathered
+    block is copied into its slice of one host array."""
+    with span("sharded.gather"):
+        blocks = _all_gather(sa_local, mesh)
+        count("host_syncs", len(blocks))
+        out = torch.empty((sum(b.shape[0] for b in blocks),),
+                          dtype=sa_local.dtype)
+        at = 0
+        for b in blocks:
+            out[at:at + b.shape[0]].copy_(b)
+            at += b.shape[0]
+        return out.numpy()
+
+
+def _finish(sa: np.ndarray, n: int, out_dtype) -> np.ndarray:
+    """The ``n`` text suffixes of the padded array, in the output type:
+    a view, since the positions are non-negative and the signed and
+    unsigned types have one width."""
+    with span("sharded.finish"):
+        return sa[sa.shape[0] - n:].view(out_dtype)
 
 
 def suffix_array_sharded(data, mesh: Mesh,
@@ -309,9 +385,9 @@ def suffix_array_sharded(data, mesh: Mesh,
     n = int(arr.shape[0])
     if n == 0:
         return np.empty((0,), dtype=np.uint32)
-    sa_local, n_total, _, out_dtype = suffix_array_sharded_device(
+    sa_local, _, _, out_dtype = suffix_array_sharded_device(
         arr, mesh, index_dtype)
-    return _gather_sa(sa_local, mesh)[n_total - n:].astype(out_dtype)
+    return _finish(_gather_sa(sa_local, mesh), n, out_dtype)
 
 
 def build_table(mesh: Mesh, data, checkpoint_path: str | None = None,
@@ -319,12 +395,18 @@ def build_table(mesh: Mesh, data, checkpoint_path: str | None = None,
     """The suffix array of ``data`` (bytes, uint8 array or file path) on
     ``mesh``: the stepped build when ``checkpoint_path`` is given, else
     the one-shot one. What ``BuildConfig(sharded=True)`` and the CLI's
-    ``build --engine sharded`` run on every rank (``launch.run``)."""
-    if checkpoint_path:
-        return suffix_array_sharded_stepped(
-            _as_u8(data), mesh, checkpoint_path=checkpoint_path,
-            resume=resume, index_dtype=index_dtype)
-    return suffix_array_sharded(data, mesh, index_dtype=index_dtype)
+    ``build --engine sharded`` run on every rank (``launch.run``); a
+    ``sharded_build`` root of the recorder."""
+    arr = _as_u8(data)
+    n = int(arr.shape[0])
+    n_total = _local_bucket(n, mesh.world_size) * mesh.world_size
+    with root("sharded_build", rank=mesh.rank, world=mesh.world_size, n=n,
+              n_total=n_total):
+        if checkpoint_path:
+            return suffix_array_sharded_stepped(
+                arr, mesh, checkpoint_path=checkpoint_path, resume=resume,
+                index_dtype=index_dtype)
+        return suffix_array_sharded(arr, mesh, index_dtype=index_dtype)
 
 
 def suffix_array_sharded_device(data, mesh: Mesh, index_dtype: str = "u32"):
@@ -340,27 +422,53 @@ def suffix_array_sharded_device(data, mesh: Mesh, index_dtype: str = "u32"):
     n_total = n_local * n_dev
     dtype, out_dtype = _resolve_index_dtype(index_dtype, n_total)
     if n_dev == 1:
+        annotate(route="device")
         dispatch, _ = pd.device_build_closure(arr, n_total, index_dtype=dtype,
                                               device=mesh.device)
         return dispatch(), n_total, n_local, out_dtype
-    plan_full = _sharded_adaptive_plan(arr, n_total, n_local)
-    if plan_full is not None:
+    block, plan = _plan_and_stage(arr, mesh, n_total, n_local)
+    with span("sharded.rounds"):
+        sa_local = _dist_build(block, n_local, mesh, dtype, plan)
+    return sa_local, n_total, n_local, out_dtype
+
+
+def _plan_and_stage(arr: np.ndarray, mesh: Mesh, n_total: int, n_local: int):
+    """(this rank's block on its device, plan): dense codes under the
+    adaptive plan (n_words, bits, cpw), or bytes and None."""
+    with span("sharded.plan"):
+        plan_full = _sharded_adaptive_plan(arr, n_total, n_local, mesh)
+    annotate(route="packed" if plan_full is None else "coded")
+    with span("sharded.stage"):
+        if plan_full is None:
+            return device_corpus(arr, mesh, n_pad=n_total)[0], None
         lut, plan = plan_full
-        block, _ = device_corpus(arr, mesh, n_pad=n_total, lut=lut, fill=0)
-    else:
-        plan = None
-        block, _ = device_corpus(arr, mesh, n_pad=n_total)
-    return (_dist_build(block, n_local, mesh, dtype, plan), n_total, n_local,
-            out_dtype)
+        return (device_corpus(arr, mesh, n_pad=n_total, lut=lut, fill=0)[0],
+                plan)
 
 
-def _sharded_adaptive_plan(arr: np.ndarray, n_total: int, n_local: int):
+def _byte_counts(arr: np.ndarray, n_local: int, mesh: Mesh) -> np.ndarray:
+    """The 256 byte counts of the whole text: each rank counts its own
+    block, and one all-reduce sums them."""
+    lo = mesh.rank * n_local
+    counts = torch.from_numpy(np.bincount(arr[lo:lo + n_local],
+                                          minlength=256)).to(mesh.device)
+    if mesh.world_size > 1:
+        dist.all_reduce(counts, group=mesh.group)
+    count("host_syncs")
+    return counts.cpu().numpy()
+
+
+def _sharded_adaptive_plan(arr: np.ndarray, n_total: int, n_local: int,
+                           mesh: Mesh | None = None):
     """(lut, (n_words, bits, cpw)) for the dense-coded first round, or
     None: the single-device policy (``prefix_doubling._adaptive_plan``),
-    with the key window inside one block's halo."""
+    with the key window inside one block's halo. With ``mesh`` (every
+    rank calls this) the byte counts come from the ranks' own blocks."""
     if n_total < pd.ADAPTIVE_PACK_MIN:
         return None
-    plan = pd._adaptive_plan(arr, n_total)
+    plan = pd._adaptive_plan(
+        arr, n_total,
+        counts=None if mesh is None else _byte_counts(arr, n_local, mesh))
     if plan is None:
         return None
     lut, bits, cpw, n_words = plan
@@ -494,20 +602,17 @@ def suffix_array_sharded_stepped(data, mesh: Mesh,
     if resume and checkpoint_path:
         state = _resume_state(checkpoint_path, mesh, n_total, n_local, dtype)
     if state is None:
-        plan_full = _sharded_adaptive_plan(arr, n_total, n_local)
-        if plan_full is not None:
+        block, plan = _plan_and_stage(arr, mesh, n_total, n_local)
+    with span("sharded.rounds"):
+        if state is None and plan is not None:
             # The coded first round is step 0: its state (k = n_words *
             # cpw) resumes through the normal quadrupling rounds.
-            lut, plan = plan_full
-            codes, _ = device_corpus(arr, mesh, n_pad=n_total, lut=lut,
-                                     fill=0)
-            state = _coded_first_round(codes, n_local, mesh, *plan, dtype)
+            state = _coded_first_round(block, n_local, mesh, *plan, dtype)
             persist(state)
-        else:
-            text, _ = device_corpus(arr, mesh, n_pad=n_total)
-            state = (_packed_initial_rank(text, mesh).to(dtype), None, 3,
+        elif state is None:
+            state = (_packed_initial_rank(block, mesh).to(dtype), None, 3,
                      False)
-    while not state[3] and state[2] < n_total:
-        state = _round_body(state[0], state[2], n_local, mesh)
-        persist(state)
-    return _gather_sa(state[1], mesh)[n_total - n:].astype(out_dtype)
+        while not state[3] and state[2] < n_total:
+            state = _round_body(state[0], state[2], n_local, mesh)
+            persist(state)
+    return _finish(_gather_sa(state[1], mesh), n, out_dtype)

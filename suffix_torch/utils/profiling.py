@@ -3,7 +3,9 @@
 One recorder, always on and bounded:
 
 - ``root(name, **attrs)`` opens a root span: one build
-  (``SuffixTable.new``) or one serving drain (``serve.Batcher``). Each
+  (``SuffixTable.new``, a ``build`` root), one rank's part of a sharded
+  build (``parallel/dist_build.py::build_table``, a ``sharded_build``
+  root on every rank) or one serving drain (``serve.Batcher``). Each
   root gets an id; ``with root(...) as r`` gives its record.
 - ``span(name, **attrs)`` opens a child span of the open root of this
   thread; its parent is the innermost span open around it.
