@@ -18,6 +18,12 @@ Phases, each printing one JSON line:
               then the histogram battery (ops/kernels.py), whose
               dna_s_sym row gives the kernel table's times: ``ms`` after
               the zeroing flush, ``library_ms`` torch.histc.
+   kernels_main_path — byte_histogram at the default build's shape: 200
+              MiB of random bytes staged as a build stages them (2^28
+              int32 slots, the rest PAD), 256 bins, equal to its plain
+              version, and the device byte counts equal to np.bincount;
+              CUDA-event medians of the kernel, the plain version and
+              torch.bincount, beside the bound at 3.35 TB/s.
    probes   — copy_blocks, copy5_blocks and minmax_stages against their
               plain versions at (2^15, 128) int32 from seed 3, ragged
               copies (less than one 32 KiB chunk, no multiple of it) and
@@ -43,7 +49,10 @@ Phases, each printing one JSON line:
               262,144-query batch: device busy share, top kernels, SA-IS
               phase scopes.
 8. build_4m_device — the main path: the default build of the same text
-              with build stats, certified; the phase-6 query batch on it
+              with build stats, certified, its byte_histogram launches
+              counted (as in every default build below: one, the plan's
+              byte counts; two in the near-repeated build, whose
+              rotation build counts too); the phase-6 query batch on it
               (queries_device); then ``lcp_lens()``, 65,536 sampled
               adjacent pairs checked against their byte-wise common prefix.
    search_probe — the probe-chain engines on that table and its
@@ -170,20 +179,27 @@ Phases, each printing one JSON line:
               (ping, count, quit) at once; each step's wall seconds.
 
 byte_histogram's launch counter is set to 0 just before phase 5 and read
-just after phase 6 (its path is the SA-IS build), and again just before
-and after collective_bins' layout (the sharded bucket layout); the
-probes' counters (minmax_stages' by path too) just before and after the
-battery, which must run the register path. The doubling and LCP path
-runs library operations only, the native and hybrid phases host C++;
-sais_hybrid's derivation launches byte_histogram outside both counted
-windows; the probe engines, the rest of the sharded build, the serving,
-tree and CLI phases run library operations and collectives and launch
-none of the four kernels. Sharded serving adds no kernel: the JAX
-package's ``dist_query.py`` runs no Pallas kernel, only XLA sorts,
-gathers and collectives, and its port runs library operations and
-``torch.distributed`` calls; sharded_build, sharded_serve, sharded_ckpt,
-sharded_multi (but for its layout) and the cli phase launch none of the
-four kernels.
+just after phase 6 (its path is the SA-IS build), again just before and
+after each default build of build_device (the main path: the plan's
+byte counts), and just before and after collective_bins' layout (the
+sharded bucket layout); the kernel line's ``callers`` name each window's
+launches. The probes' counters (minmax_stages' by path too) are set to 0
+just before and read just after the battery, which must run the
+register path. Besides the plan's byte counts the doubling and LCP path
+runs library operations only, the native and hybrid phases host C++.
+Every default build of a text of 2^17 padded slots or more counts its
+bytes with byte_histogram, so it also launches outside the counted
+windows: golden_device's 100 KB fixture, the profiled builds,
+sais_hybrid's doubling derivation, and the one-rank mesh's builds in
+sharded_build, sharded_serve and ``dryrun_multichip(1)`` (a one-rank
+mesh runs ``device_build_closure``). The probe engines, the rest of the
+sharded build (the stepped build, sharded_ckpt, and sharded_multi's
+builds at two and four ranks, which count on the host), the serving and
+tree phases run library operations and collectives and launch none of
+the four kernels. Sharded serving adds no kernel: the JAX package's
+``dist_query.py`` runs no Pallas kernel, only XLA sorts, gathers and
+collectives, and its port runs library operations and
+``torch.distributed`` calls.
 The line before
 the last is the kernel table (``{"kernels": [...]}``); the last line is
 the device summary. Any failed
@@ -236,6 +252,9 @@ SEED = 0xD4A
 N_TEXT = 1 << 22
 N_TEXT_64M = 1 << 26  # the size scripts/scale_probe.py measured
 N_TEXT_128M = 1 << 27  # bench.py's large text row
+# The default build's shape in the benchmark's single-card cells: 200 MiB
+# of text staged into 2^28 int32 slots, the rest PAD.
+N_TEXT_MAIN, N_PAD_MAIN = 200 << 20, 1 << 28
 N_QUERIES = 262144
 QLEN = 14
 LCP_SAMPLES = 1 << 16
@@ -449,6 +468,57 @@ def check_histogram(torch, kernels, sais, raw: bytes,
                 "read_flush_ms", "library_read_flush_ms", "bincount_ms",
                 "torch_sum1_ms", "torch_sum1_read_flush_ms", "input")},
             "library_call": "torch.histc", "device_ops_per_call": 1}
+
+
+def check_histogram_main_path(torch, kernels, pd) -> dict:
+    """Phase 3, kernels_main_path: byte_histogram at the default build's
+    shape, 256 bins over 200 MiB of bytes (all 256 values) staged as a
+    build stages them (``_stage_text``: 2^28 int32 slots, 58,720,256 of
+    them PAD): equal to its plain version and, through
+    ``_device_byte_counts``, to ``np.bincount``; then CUDA-event medians
+    of the kernel (20 calls), its plain version (3) and ``torch.bincount``
+    of the text's int32 values (5)."""
+    dev = torch.device("cuda")
+    n, n_pad = N_TEXT_MAIN, N_PAD_MAIN
+    arr = np.random.default_rng(SEED + 28).integers(0, 256, n,
+                                                     dtype=np.uint8)
+    padded = pd._stage_text(arr, n_pad, dev)
+    got = kernels.byte_histogram(padded, 256)
+    want = kernels.byte_histogram_plain(padded, 256)
+    err = int((got.long() - want.long()).abs().max())
+    if err != 0:
+        raise AssertionError(f"byte_histogram differs from its plain version "
+                             f"at 2^28 padded slots: max |err| {err}")
+    if not np.array_equal(pd._device_byte_counts(padded),
+                          np.bincount(arr, minlength=256)):
+        raise AssertionError("the device byte counts of 200 MiB differ from "
+                             "np.bincount")
+
+    def event_ms(fn, reps):
+        fn()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    text = padded[:n]
+    row = {"ms": event_ms(lambda: kernels.byte_histogram(padded, 256), 20),
+           "plain_ms": event_ms(
+               lambda: kernels.byte_histogram_plain(padded, 256), 3),
+           "bincount_ms": event_ms(
+               lambda: torch.bincount(text, minlength=256), 5),
+           "bound_ms": (4 * n_pad + 4 * 256) / HBM_BYTES_PER_S * 1e3}
+    emit("kernels_main_path", n=n, n_pad=n_pad, n_bins=256, max_abs_err=err,
+         counts_equal_bincount=True, **row)
+    del padded, got, want, text
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, **row}
 
 
 def check_probes(torch, probes, ptxas: list[dict]) -> dict:
@@ -677,23 +747,38 @@ def check_lcp_64m(torch, lcp_ops, native, st, raw: bytes) -> str:
     return sha(lcp)
 
 
-def build_device(torch, SuffixTable, verify, raw: bytes, phase: str,
-                 label: str = LABEL_DNA, **extra):
+# byte_histogram's launches in each default build of build_device, by
+# phase: the kernel table's callers on the main path.
+MAIN_PATH_LAUNCHES: dict[str, int] = {}
+
+
+def build_device(torch, kernels, SuffixTable, verify, raw: bytes, phase: str,
+                 label: str = LABEL_DNA, histograms: int = 1, **extra):
     """A default build with stats, its route label and certificate;
+    byte_histogram's counter set to 0 just before the build and read just
+    after, ``histograms`` launches expected (one count of the text's
+    bytes; the patched route's rotation build counts its own);
     ``extra`` goes into the phase's line."""
     torch.cuda.reset_peak_memory_stats()
+    kernels.byte_histogram.launches = 0
     t0 = time.perf_counter()
     st = SuffixTable.new(raw, collect_stats=True)
     build_s = time.perf_counter() - t0
+    launches = kernels.byte_histogram.launches
     peak = torch.cuda.max_memory_allocated()
     if st.build_stats["engine"] != label:
         raise AssertionError(f"route {st.build_stats['engine']!r} != the "
                              f"JAX package's {label!r}")
+    if launches != histograms:
+        raise AssertionError(f"{phase}: byte_histogram launched {launches} "
+                             f"times; expected {histograms}")
+    MAIN_PATH_LAUNCHES[phase] = launches
     t0 = time.perf_counter()
     if not verify(raw, st.table()):
         raise AssertionError(f"{phase}: table fails the certificate")
     emit(phase, build_s=build_s, certificate_s=time.perf_counter() - t0,
-         peak_device_gib=peak / 2**30, **extra, **st.build_stats)
+         peak_device_gib=peak / 2**30, histogram_launches=launches, **extra,
+         **st.build_stats)
     return st
 
 
@@ -2128,6 +2213,7 @@ def main() -> int:
     from suffix_torch.device import resolve_device
     from suffix_torch import serve
     from suffix_torch.ops import kernels, probes, sais, search, search2
+    from suffix_torch.ops import prefix_doubling as pd
     from suffix_torch.ops import lcp as lcp_ops
     from suffix_torch import SuffixTree
     from suffix_torch.parallel import (collective_bins, dist_build,
@@ -2158,6 +2244,7 @@ def main() -> int:
     raw = dna_text(rng)
     hist = check_histogram(torch, kernels, sais, raw, kernels.ptxas_report(
         libs["histogram"].with_suffix(".log").read_text()))
+    hist_main = check_histogram_main_path(torch, kernels, pd)
     probe = check_probes(torch, probes, kernels.ptxas_report(
         libs["probes"].with_suffix(".log").read_text()))
 
@@ -2190,8 +2277,8 @@ def main() -> int:
     del st
 
     # ---- the main path: default build, queries, LCP ---------------------
-    st_d = build_device(torch, SuffixTable, verify_suffix_array, raw,
-                        "build_4m_device")
+    st_d = build_device(torch, kernels, SuffixTable, verify_suffix_array,
+                        raw, "build_4m_device")
     drawn14_d = check_queries(st_d, raw, np.random.default_rng(SEED + 2),
                               phase="queries_device")
     sha_4m = sha(st_d.table())
@@ -2206,8 +2293,8 @@ def main() -> int:
 
     raw64 = (np.random.default_rng(SEED + 64).integers(
         0, 4, size=N_TEXT_64M, dtype=np.uint8) + 97).tobytes()
-    st64 = build_device(torch, SuffixTable, verify_suffix_array, raw64,
-                        "build_64m_device")
+    st64 = build_device(torch, kernels, SuffixTable, verify_suffix_array,
+                        raw64, "build_64m_device")
     sha_lcp64 = check_lcp_64m(torch, lcp_ops, native, st64, raw64)
     profile(torch, "lcp_64m", st64.lcp_lens, LCP_SCOPES)
     tab64 = st64.table()  # for verify_device
@@ -2216,14 +2303,17 @@ def main() -> int:
     # The other routes of the default build at 4 MiB: rounds at full
     # width, and the two-phase engine.
     repeats = dna_repeats()
-    build_device(torch, SuffixTable, verify_suffix_array, repeats,
+    build_device(torch, kernels, SuffixTable, verify_suffix_array, repeats,
                  "build_4m_device_repeats", LABEL_DNA_REPEATS)
     text = text_repeats()
-    build_device(torch, SuffixTable, verify_suffix_array, text,
+    build_device(torch, kernels, SuffixTable, verify_suffix_array, text,
                  "build_4m_device_text", LABEL_TEXT_REPEATS)
     nearrep = nearrep_text()
-    st_near = build_device(torch, SuffixTable, verify_suffix_array, nearrep,
-                           "build_4m_device_nearrep", LABEL_NEARREP)
+    # Two counts: the text's, and the rotation build's of its first two
+    # tiles (2^18 padded slots).
+    st_near = build_device(torch, kernels, SuffixTable, verify_suffix_array,
+                           nearrep, "build_4m_device_nearrep", LABEL_NEARREP,
+                           histograms=2)
 
     profile(torch, "build_4m_device", lambda: SuffixTable.new(raw),
             DOUBLING_SCOPES)
@@ -2238,8 +2328,8 @@ def main() -> int:
     # ---- 128 MiB text: build, deep keyless queries, lean build ----------
     t0 = time.perf_counter()
     text128 = textgen.text_corpus(N_TEXT_128M).tobytes()
-    st128 = build_device(torch, SuffixTable, verify_suffix_array, text128,
-                         "build_128m_text", LABEL_TEXT_128M,
+    st128 = build_device(torch, kernels, SuffixTable, verify_suffix_array,
+                         text128, "build_128m_text", LABEL_TEXT_128M,
                          generate_s=time.perf_counter() - t0)
     deep = check_deep_queries(torch, search2, st128, text128)
     check_serve(torch, serve, st128, text128, card)
@@ -2313,11 +2403,13 @@ def main() -> int:
                      "suffix_tpu/ops/pallas_kernels.py:51",
                      {**hist, "launches": launches, "callers": {
                          "sais_build_4m_and_queries": launches,
-                         "collective_bins_64m": bins_launches}},
+                         "collective_bins_64m": bins_launches,
+                         **MAIN_PATH_LAUNCHES},
+                      "main_path": hist_main},
                      ("input", "warm_ms", "read_flush_ms", "library_call",
                       "library_read_flush_ms", "bincount_ms",
                       "torch_sum1_ms", "torch_sum1_read_flush_ms",
-                      "device_ops_per_call", "callers")),
+                      "device_ops_per_call", "callers", "main_path")),
         kernel_entry("copy_blocks", "suffix_torch/csrc/probes.cu",
                      "scripts/round3_study.py:114", probe["copy_blocks"]),
         kernel_entry("copy5_blocks", "suffix_torch/csrc/probes.cu",

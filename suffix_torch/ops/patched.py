@@ -30,6 +30,9 @@ What changes from JAX to PyTorch:
   since the LCP of two suffixes is the least adjacent LCP between them).
 - ``jax.named_scope`` becomes ``record_function``: ``PP_small_key`` beside
   the doubling engine's ``P0_``..``P6_`` names.
+- The text is staged as the doubling routes stage it: its bytes go up
+  once and the device widens, counts (``byte_histogram``) and codes them
+  (JAX: ``np.bincount`` and the packed codes on the host).
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 from torch.profiler import record_function
 
 from suffix_torch.device import resolve_device
-from suffix_torch.ops.padding import PAD, bucket_size
+from suffix_torch.ops.padding import bucket_size
 from suffix_torch.ops.sort import lexsort, lexsort_perm
 from suffix_torch.utils.profiling import count, root, span
 
@@ -334,11 +337,15 @@ def patched_dispatch(arr: np.ndarray, q: int, defects: np.ndarray,
                      closed_form=pure and not done)
         return sa
 
+    # The text is staged, counted and coded on the device, as the
+    # doubling routes do (pd.device_build_closure).
+    t_dev = pd._stage_text(arr, n_pad, dev)
     # Phase A only separates period rotations: the random-text width
     # estimate (no repeat lever), widened to the measured rotation depth
     # when that costs at most 3 more words.
     with span("build.plan"):
-        plan = pd._adaptive_plan(arr, n_pad, lcp_lb=None)
+        plan = pd._adaptive_plan(arr, n_pad, lcp_lb=None,
+                                 counts=pd._device_byte_counts(t_dev))
     with span("build.probe"):
         w_rot = _rotation_width(arr, q, dev)
     if plan is not None:
@@ -348,14 +355,9 @@ def patched_dispatch(arr: np.ndarray, q: int, defects: np.ndarray,
             if n_words < want <= min(n_words + 3, PATCH_MAX_WORDS):
                 n_words = want
         with span("build.pack"):
-            codes = np.zeros((n_pad,), np.int32)
-            codes[:n] = lut[arr]
-        c_dev = pd._upload(codes, dev)
+            c_dev = pd._code_text(t_dev, n, lut)
+        del t_dev  # the rounds read the codes alone
         return (lambda: run(pd._packed_words(c_dev, n_words, bits, cpw),
                             n_words * cpw), label)
-    with span("build.pack"):
-        padded = np.full((n_pad,), PAD, np.int32)
-        padded[:n] = arr
-    t_dev = pd._upload(padded, dev)
     iw = pd.pick_init_words(n_pad)
     return (lambda: run(pd._initial_words(t_dev, iw), 3 * iw), label)

@@ -43,35 +43,46 @@ What changes from JAX to PyTorch:
   host-stepped parts, unnamed in JAX, are ``T1_``..``T3_``.
 - ``index_dtype="u64"`` runs int64 indices; it needs no global switch.
 
+Staging (the doubling routes): the host probes the text for a period,
+then uploads its ``n`` bytes once; the card widens them to the PAD-padded
+int32 text, counts them for the adaptive plan (``kernels.byte_histogram``,
+one readback of 256 counts) and, on the adaptive route, codes them
+through the plan's LUT. The JAX package stages the same arrays on its
+host.
+
 The build's layers are spans of the recorder (``utils/profiling.py``)
 inside ``SuffixTable.new``'s ``build`` root: ``build.probe``,
-``build.plan``, ``build.pack`` and ``build.upload`` in
-``device_build_closure``; ``build.dispatch`` (the rounds, to the device's
-end), ``build.download`` and ``build.finish`` in ``suffix_array_bytes``;
-``build.readback`` around each host read of a device value. Counters:
-``rounds`` (quadrupling rounds of both phases), ``host_syncs`` (one a
-readback), ``pad_slots`` (padding slots given distinct keys, read with
-the initial sort's readback; 0 when the text fills its bucket),
-``h2d_bytes`` and ``d2h_bytes`` (the pageable copies; 0 on the CPU, where
-nothing is copied). The patched route's rotation-width build
-(``ops/patched.py``) is a ``build.rotation`` root of its own, inside the
-job's ``build.probe``.
+``build.upload`` (the text's bytes), ``build.pack`` (the widening and
+the coding on the device) and ``build.plan`` (the count, its readback and
+``_adaptive_plan``) in ``device_build_closure``; ``build.dispatch`` (the
+rounds, to the device's end), ``build.download`` and ``build.finish`` in
+``suffix_array_bytes``; ``build.readback`` around each host read of a
+device value. Counters: ``rounds`` (quadrupling rounds of both phases),
+``host_syncs`` (one a readback), ``pad_slots`` (padding slots given
+distinct keys, read with the initial sort's readback; 0 when the text
+fills its bucket), ``h2d_bytes`` and ``d2h_bytes`` (the pageable copies of
+the staged input and of the suffix array; 0 on the CPU, where nothing is
+copied; the 1 KiB LUT and the readbacks are not counted). The patched
+route's rotation-width build (``ops/patched.py``) is a ``build.rotation``
+root of its own, inside the job's ``build.probe``.
 
-No Pallas kernel lies on this path: it is library sorts, scans, slices,
-gathers and scatters, in JAX as here.
+One hand-written kernel lies on this path, ``byte_histogram`` for the
+plan's counts; the rest is library sorts, scans, slices, gathers and
+scatters, in JAX as here.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+import warnings
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from suffix_torch.device import resolve_device
-from suffix_torch.ops import patched
+from suffix_torch.ops import kernels, patched
 from suffix_torch.ops.padding import PAD, bucket_size, bucket_size_fine
 from suffix_torch.ops.sort import lexsort
 from suffix_torch.utils.profiling import annotate, count, span
@@ -457,7 +468,8 @@ def _adaptive_plan(arr: np.ndarray, n_pad: int, with_meta: bool = False,
     returns (plan, sigma, repeat_hit). ``lcp_lb``: "auto" probes for a
     long self-repeat; callers that probed pass the bound (or None).
     ``counts``: the 256 byte counts of ``arr``, where the caller has them
-    (the sharded build sums its ranks' blocks); else counted here."""
+    (``device_build_closure`` counts on the device, the sharded build sums
+    its ranks' blocks); else counted here."""
     if counts is None:
         counts = np.bincount(arr, minlength=256)
     present = np.flatnonzero(counts)
@@ -683,13 +695,56 @@ def _periodic_dispatch(arr: np.ndarray, q: int, n_pad: int, index_dtype,
     return dispatch, f"periodic(q={q})"
 
 
-def _upload(host: np.ndarray, device) -> torch.Tensor:
+def _upload(host: np.ndarray | torch.Tensor, device) -> torch.Tensor:
     """A staged host array on ``device``: one pageable copy, the span
-    ``build.upload``."""
+    ``build.upload``. ``host`` may be a CPU tensor over a host array."""
     with span("build.upload"):
-        out = torch.from_numpy(host).to(device)
+        src = host if isinstance(host, torch.Tensor) else \
+            torch.from_numpy(host)
+        out = src.to(device)
     count("h2d_bytes", host.nbytes if out.device.type != "cpu" else 0)
     return out
+
+
+def _stage_text(arr: np.ndarray, n_pad: int, device) -> torch.Tensor:
+    """The PAD-padded int32 text (``n_pad`` slots) on ``device``, from one
+    upload of its ``n`` bytes, widened there. A read-only ``arr`` (the
+    caller's text) is read in place and never written, on the CPU too."""
+    host = np.ascontiguousarray(arr)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable", UserWarning)
+        src = torch.from_numpy(host)
+    raw = _upload(src, device)
+    with span("build.pack"):
+        padded = torch.full((n_pad,), PAD, dtype=I32, device=raw.device)
+        padded[:raw.shape[0]] = raw
+    return padded
+
+
+COUNT_SLICE = 1 << 30  # values a byte_histogram call counts: < 2^31 a bin
+
+
+def _device_byte_counts(padded: torch.Tensor) -> np.ndarray:
+    """The 256 byte counts of a PAD-padded int32 text on its device, int64,
+    with one readback. ``byte_histogram`` drops PAD and counts into int32
+    bins, so it counts slices of COUNT_SLICE values, summed in int64."""
+    total = torch.zeros(256, dtype=torch.int64, device=padded.device)
+    for lo in range(0, padded.shape[0], COUNT_SLICE):
+        total += kernels.byte_histogram(padded[lo:lo + COUNT_SLICE], 256)
+    with _readback():
+        return total.cpu().numpy()
+
+
+def _code_text(padded: torch.Tensor, n: int, lut: np.ndarray) -> torch.Tensor:
+    """The dense codes of a PAD-padded text on its device: ``lut`` of each
+    of its ``n`` bytes, 0 in the padding (the host's ``lut[arr]`` padded
+    with 0). The index is the int32 text itself: a uint8 index would read
+    as a mask."""
+    codes = torch.zeros_like(padded)
+    lut_dev = torch.as_tensor(lut, dtype=I32, device=padded.device)
+    torch.index_select(lut_dev, 0, padded[:n], out=codes[:n])
+    return codes
 
 
 def device_build_closure(arr: np.ndarray, n_pad: int, index_dtype=I32,
@@ -730,11 +785,13 @@ def device_build_closure(arr: np.ndarray, n_pad: int, index_dtype=I32,
                                                 device=dev)
                 if disp is not None:
                     return disp
+    t_dev = _stage_text(arr, n_pad, dev)
     plan, sigma, repeat_hit = None, 0, False
     if n_pad >= ADAPTIVE_PACK_MIN:
         with span("build.plan"):
             plan, sigma, repeat_hit = _adaptive_plan(
-                arr, n_pad, with_meta=True, lcp_lb=lcp_lb)
+                arr, n_pad, with_meta=True, lcp_lb=lcp_lb,
+                counts=_device_byte_counts(t_dev))
     two_phase = n_pad >= TWO_PHASE_MIN and (
         TWO_PHASE_FORCE or plan is None
         or (sigma >= TWO_PHASE_SIGMA_MIN and not repeat_hit))
@@ -753,9 +810,8 @@ def device_build_closure(arr: np.ndarray, n_pad: int, index_dtype=I32,
     if plan is not None:
         lut, bits, cpw, n_words = plan
         with span("build.pack"):
-            codes = np.zeros((n_pad,), dtype=np.int32)
-            codes[:n] = lut[arr]
-        c_dev = _upload(codes, dev)
+            c_dev = _code_text(t_dev, n, lut)
+        del t_dev  # the rounds read the codes alone
         label = f"adaptive({bits}b x {cpw * n_words}ch)"
         if stats is not None:
             stats.update(h0=cpw * n_words)
@@ -767,10 +823,6 @@ def device_build_closure(arr: np.ndarray, n_pad: int, index_dtype=I32,
         return (lambda: classic(lambda ws: _suffix_array_packed(
             c_dev, n_words, bits, cpw, index_dtype=index_dtype,
             with_stats=ws)), label)
-    with span("build.pack"):
-        padded = np.full((n_pad,), PAD, dtype=np.int32)
-        padded[:n] = arr
-    t_dev = _upload(padded, dev)
     iw = pick_init_words(n_pad)
     label = f"ladder({iw}w)"
     if stats is not None:

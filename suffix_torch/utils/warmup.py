@@ -7,8 +7,11 @@ caching allocator's growth to the program's peak. ``warm`` runs the JAX
 package's program list once at the same power-of-two buckets
 (ops/padding.py): the build, the two-phase and adaptive builds, the query
 index, the query batches and the LCP, so a serving process meets its
-first request with all of that in place; ``warm_sharded`` does the same
-for the sharded build's programs on every rank.
+first request with all of that in place. Where a build makes an adaptive
+plan, the port also counts the text's bytes on the card once (the
+``byte_histogram`` kernel, which the JAX package does not run).
+``warm_sharded`` does the same for the sharded build's programs on every
+rank.
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ def warm(n_bytes: int,
     from suffix_torch.ops.padding import PAD, bucket_size
     from suffix_torch.ops.prefix_doubling import (
         ADAPTIVE_PACK_MIN, I32, TIE_CAP_FRAC, TWO_PHASE_MIN, _adaptive_plan,
-        _phase1_padded, _suffix_array_packed, _suffix_array_padded,
-        _two_phase_build, pick_init_words)
+        _device_byte_counts, _phase1_padded, _suffix_array_packed,
+        _suffix_array_padded, _two_phase_build, pick_init_words)
 
     dev = resolve_device(device)
     timings: list[tuple[str, float]] = []
@@ -80,6 +83,9 @@ def warm(n_bytes: int,
                  _phase1_padded(t_dev, iw, I32, n_pad // TIE_CAP_FRAC),
                  n_pad))
     if n_pad >= ADAPTIVE_PACK_MIN:
+        # The plan's byte counts (byte_histogram: its library, built on
+        # first use, and its occupancy query), as a build counts its text.
+        step(f"byte counts n={n_pad}", lambda: _device_byte_counts(t_dev))
         for sigma in alphabet_sizes:
             sample = (rng.integers(0, max(int(sigma), 2),
                                    size=min(n_bytes, 4096),

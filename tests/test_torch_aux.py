@@ -90,6 +90,7 @@ def test_warm_small(capsys):
     names = [n for n, _ in timings]
     assert names == [
         "build n=131072 (init_words=4)",
+        "byte counts n=131072",
         "adaptive build n=131072 sigma=4 (3b x 30ch)",
         "query_index n=131072",
         "queries q=8 m=8 n=131072",

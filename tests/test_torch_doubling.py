@@ -592,3 +592,131 @@ def test_cuda_default_build(cuda_device, name):
     assert verify_suffix_array(raw, st_.table())
     u64 = pd.suffix_array_bytes(raw, index_dtype="u64", device=cuda_device)
     assert np.array_equal(u64, st_.table().astype(np.uint64))
+
+
+# Staging on the device: the text's bytes go up once, and the device
+# widens them, counts them for the plan and codes them. Each case against
+# the host staging that the JAX package does, with the route it takes.
+_DNA16 = np.frombuffer(b"ACGTNRYKMSWBDHVX", np.uint8)
+STAGING_CASES = {
+    "dna_sigma16": (lambda rng: rng.choice(_DNA16, 70_001), {}, "adaptive"),
+    # Sigma 225 with a plan of at most 2 words: the plan comes out empty,
+    # as it does for English at 2^28 padded slots, so the ladder route
+    # runs after the count.
+    "sigma225": (lambda rng: rng.integers(16, 241, 70_003, dtype=np.uint8),
+                 {"ADAPTIVE_MAX_WORDS": 2}, "ladder"),
+    "all_bytes": (lambda rng: np.concatenate([
+        np.arange(256, dtype=np.uint8),
+        rng.integers(0, 256, 70_000, dtype=np.uint8),
+        np.array([0, 255], np.uint8)]), {}, "adaptive"),
+    "no_padding": (lambda rng: rng.integers(97, 101, 1 << 17, dtype=np.uint8),
+                   {}, "adaptive"),
+    "below_plan": (lambda rng: rng.integers(97, 101, 5_000, dtype=np.uint8),
+                   {}, "ladder"),
+}
+
+
+def _host_staging(arr: np.ndarray, n_pad: int, lut=None) -> np.ndarray:
+    """The host staging: ``arr`` padded with PAD, or ``lut[arr]`` padded
+    with 0."""
+    if lut is None:
+        out = np.full((n_pad,), PAD, np.int32)
+        out[:arr.size] = arr
+    else:
+        out = np.zeros((n_pad,), np.int32)
+        out[:arr.size] = lut[arr]
+    return out
+
+
+def _check_staging(arr: np.ndarray, device) -> tuple:
+    """Stage ``arr`` on ``device`` as the build does and hold each array to
+    the host staging; returns (n_pad, counts or None, plan meta)."""
+    n_pad = pd.bucket_size(arr.size)
+    padded = pd._stage_text(arr, n_pad, device)
+    assert padded.dtype == torch.int32 and padded.device.type == device.type
+    assert np.array_equal(padded.cpu().numpy(), _host_staging(arr, n_pad))
+    if n_pad < pd.ADAPTIVE_PACK_MIN:
+        return n_pad, None, None
+    counts = pd._device_byte_counts(padded)
+    assert counts.dtype == np.int64
+    assert np.array_equal(counts, np.bincount(arr, minlength=256))
+    meta = pd._adaptive_plan(arr, n_pad, with_meta=True, counts=counts)
+    plan = meta[0]
+    if plan is not None:
+        codes = pd._code_text(padded, arr.size, plan[0])
+        assert np.array_equal(codes.cpu().numpy(),
+                              _host_staging(arr, n_pad, plan[0]))
+    return n_pad, counts, meta
+
+
+@pytest.mark.parametrize("name", sorted(STAGING_CASES))
+def test_device_staging_matches_host_and_jax(jpd, gates, name):
+    make, gate, route = STAGING_CASES[name]
+    gates(**gate)
+    arr = make(np.random.default_rng(17))
+    n_pad, counts, meta = _check_staging(arr, torch.device("cpu"))
+    if meta is not None:
+        want = jpd._adaptive_plan(arr, n_pad, with_meta=True)
+        assert meta[1:] == want[1:]
+        assert (meta[0] is None) == (want[0] is None)
+        if want[0] is not None:
+            assert np.array_equal(meta[0][0], want[0][0])
+            assert meta[0][1:] == want[0][1:]
+    assert _assert_parity(jpd, arr, oracle=False).startswith(route)
+
+
+def test_byte_counts_in_slices(monkeypatch):
+    # Slices of COUNT_SLICE values each, summed in int64: the u64 route's
+    # counts, which one int32 histogram could overflow at 2^31 values.
+    arr = np.random.default_rng(5).integers(0, 256, 10_007, dtype=np.uint8)
+    padded = pd._stage_text(arr, 1 << 14, torch.device("cpu"))
+    want = np.bincount(arr, minlength=256)
+    for size in (1000, 4096, 1 << 14, 1 << 30):
+        monkeypatch.setattr(pd, "COUNT_SLICE", size)
+        assert np.array_equal(pd._device_byte_counts(padded), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(STAGING_CASES))
+def test_cuda_staging_matches_host(cuda_device, monkeypatch, name):
+    make, gate, _ = STAGING_CASES[name]
+    for key, value in gate.items():
+        monkeypatch.setattr(pd, key, value)
+    arr = make(np.random.default_rng(17))
+    n_pad, counts, _ = _check_staging(arr, cuda_device)
+    if counts is not None:
+        monkeypatch.setattr(pd, "COUNT_SLICE", 1001)
+        padded = pd._stage_text(arr, n_pad, cuda_device)
+        assert np.array_equal(pd._device_byte_counts(padded), counts)
+    got = pd.suffix_array_bytes(arr, device=cuda_device)
+    assert np.array_equal(got, _port_sa(arr))
+
+
+@pytest.mark.gpu
+def test_cuda_staging_frees_the_text_and_counts_its_copies(cuda_device):
+    from suffix_torch.ops import kernels
+
+    arr = np.random.default_rng(9).choice(_DNA16, 70_001)
+    n, n_pad = arr.size, pd.bucket_size(arr.size)
+    kernels.byte_histogram(torch.zeros(4, dtype=torch.int32,
+                                       device=cuda_device), 256)
+    torch.cuda.synchronize(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    dispatch, label = pd.device_build_closure(arr, n_pad, device=cuda_device)
+    assert label.startswith("adaptive")
+    # The closure holds the coded words alone: not the bytes (n) and not
+    # the widened text (another 4 * n_pad).
+    held = torch.cuda.memory_allocated(cuda_device) - base
+    assert 4 * n_pad <= held < 4 * n_pad + n // 2
+    assert np.array_equal(dispatch().cpu().numpy()[n_pad - n:],
+                          _port_sa(arr))
+    del dispatch
+
+    launches = kernels.byte_histogram.launches
+    before = P.finished("build")
+    SuffixTable.new(arr.tobytes(), device=cuda_device)
+    (got,) = [r for r in P.finished("build")
+              if r["id"] not in {b["id"] for b in before}]
+    assert got["counters"]["h2d_bytes"] == n
+    assert got["counters"]["d2h_bytes"] == 4 * n_pad
+    assert kernels.byte_histogram.launches == launches + 1

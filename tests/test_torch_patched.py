@@ -298,3 +298,72 @@ def test_cuda_patched_build(cuda_device, monkeypatch, index_dtype):
         assert st_.build_stats[key] == cpu.build_stats[key]
     assert np.array_equal(st_.table(), cpu.table())
     assert verify_suffix_array(arr.tobytes(), st_.table())
+
+
+def _staging_calls(monkeypatch) -> tuple[list, list, list]:
+    """Record the sizes ``pd._stage_text`` stages, the counts
+    ``pd._device_byte_counts`` returns and the sizes ``pd._code_text``
+    codes."""
+    staged, counted, coded = [], [], []
+    stage, counts, code = (pd._stage_text, pd._device_byte_counts,
+                           pd._code_text)
+
+    def stage_rec(arr, n_pad, device):
+        staged.append(int(arr.size))
+        return stage(arr, n_pad, device)
+
+    def counts_rec(padded):
+        counted.append(counts(padded))
+        return counted[-1]
+
+    def code_rec(padded, n, lut):
+        coded.append(n)
+        return code(padded, n, lut)
+
+    monkeypatch.setattr(pd, "_stage_text", stage_rec)
+    monkeypatch.setattr(pd, "_device_byte_counts", counts_rec)
+    monkeypatch.setattr(pd, "_code_text", code_rec)
+    return staged, counted, coded
+
+
+@pytest.mark.parametrize("max_words", [None, 0], ids=["adaptive", "ladder"])
+def test_patched_stages_on_the_device(monkeypatch, max_words):
+    """The patched route stages the text as the doubling routes do: one
+    staging of the whole text, its byte counts from the device, then the
+    codes (adaptive) or the widened text (no plan) on the device."""
+    if max_words is not None:
+        monkeypatch.setattr(pd, "ADAPTIVE_MAX_WORDS", max_words)
+    staged, counted, coded = _staging_calls(monkeypatch)
+    arr = near_periodic(BLOCK16, 16 * 40 + 7, [(333, ord("Q"))])
+    n_pad = pd.bucket_size(arr.size)
+    stats = {}
+    disp, label = patched.patched_dispatch(arr, 16, _defects(arr, 16), n_pad,
+                                           stats=stats, device="cpu")
+    assert label.startswith("patched(q=16,")
+    # The job's own staging, then the rotation build's of T[:2q].
+    assert staged == [arr.size, 32]
+    assert np.array_equal(counted[0], np.bincount(arr, minlength=256))
+    sa = disp().numpy()[n_pad - arr.size:].astype(np.uint32)
+    assert np.array_equal(sa, naive_table(arr.tobytes()))
+    assert coded == ([] if max_words == 0 else [arr.size])
+
+
+@pytest.mark.gpu
+def test_cuda_patched_counts_on_the_card(cuda_device, monkeypatch):
+    from suffix_torch.ops import kernels
+
+    monkeypatch.setattr(pd, "ADAPTIVE_PACK_MIN", 16)
+    staged, counted, coded = _staging_calls(monkeypatch)
+    block = bytes(np.random.default_rng(11).integers(97, 123, 1001,
+                                                     dtype=np.uint8))
+    arr = near_periodic(block, 1001 * 12 + 19, [(2020, ord("!"))])
+    launches = kernels.byte_histogram.launches
+    st_ = SuffixTable.new(arr.tobytes(), device=cuda_device,
+                          collect_stats=True)
+    assert st_.build_stats["engine"].startswith("patched(q=1001,")
+    # One count of the job's text, one of the rotation build's T[:2q].
+    assert staged == [arr.size, 2002]
+    assert kernels.byte_histogram.launches == launches + 2
+    assert np.array_equal(counted[0], np.bincount(arr, minlength=256))
+    assert coded[-1] == arr.size  # after the rotation build's own
+    assert verify_suffix_array(arr.tobytes(), st_.table())
