@@ -197,12 +197,12 @@ def _rerank_pure(cols, sa: torch.Tensor, n: int, q: int):
 def _patched_core(words, h0: int, index_dtype, n: int, q: int,
                   bnds: torch.Tensor, cls_arr: torch.Tensor,
                   rankT_flat: torch.Tensor, rank_s: torch.Tensor, n_cls: int,
-                  rs_cap: int, with_stats: bool = False):
+                  rs_cap: int):
     """Adaptive initial sort, then quadrupling rounds with a per-round
     phase-purity check; the closed-form key ``small`` rides every sort, so
     the sort that reaches purity (or completion) emits the SA.
 
-    ``with_stats=True`` returns (sa, k_final, done, pure)."""
+    Returns (sa, k_final, done, pure)."""
     from suffix_torch.ops import prefix_doubling as pd
 
     n_pad = words[0].shape[0]
@@ -247,9 +247,7 @@ def _patched_core(words, h0: int, index_dtype, n: int, q: int,
 
     # done: all ranks distinct, small never consulted; pure: every tie
     # group is same-phase and ordered by small. Either way sa is the SA.
-    if with_stats:
-        return sa, k, done, pure
-    return sa
+    return sa, k, done, pure
 
 
 def _rotation_width(arr: np.ndarray, q: int, device) -> int | None:
@@ -323,18 +321,16 @@ def patched_dispatch(arr: np.ndarray, q: int, defects: np.ndarray,
                      defects=int(defects.size), tiles=tabs["k"])
 
     def run(words, h0: int):
-        out = _patched_core(words, h0, index_dtype, n, q, bnds_d, cls_d,
-                            rankT_d, rank_s_d, n_cls, rs_cap,
-                            with_stats=stats is not None)
-        if stats is None:
-            return out
-        sa, k, done, pure = out
-        rounds, h = 0, h0
-        while h < k:
-            h *= 4
-            rounds += 1
-        stats.update(rounds=rounds, h_final=k, h0=h0,
-                     closed_form=pure and not done)
+        sa, k, done, pure = _patched_core(words, h0, index_dtype, n, q,
+                                          bnds_d, cls_d, rankT_d, rank_s_d,
+                                          n_cls, rs_cap)
+        if stats is not None:
+            rounds, h = 0, h0
+            while h < k:
+                h *= 4
+                rounds += 1
+            stats.update(rounds=rounds, h_final=k, h0=h0,
+                         closed_form=pure and not done)
         return sa
 
     # The text is staged, counted and coded on the device, as the

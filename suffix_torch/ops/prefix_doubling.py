@@ -74,8 +74,10 @@ scatters, in JAX as here.
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -244,60 +246,55 @@ def _quadrupling_round(rank: torch.Tensor, k: int, idx: torch.Tensor,
     return rank, sa, dense, done, mass
 
 
-def _doubling_core(words, h0: int, index_dtype, with_stats: bool = False):
-    """The doubling engine given initial key words that order suffixes by
-    their first ``h0`` characters. ``idx`` rides as a payload: tied keys
-    get equal dense ranks, so its order inside a tie is irrelevant.
-
-    ``with_stats=True`` returns (sa, k_final, tie_trajectory, n_rounds):
-    the tie mass after the initial sort and after each round, at most
-    TRAJ_SLOTS entries."""
-    n = words[0].shape[0]
-    idx = torch.arange(n, dtype=index_dtype, device=words[0].device)
-    rank, sa, _, done, mass = _initial_round(words, idx, with_stats)
-    traj = [mass]
-    k, rounds = h0, 0
-    while not done and k < 2 * n:
-        rank, sa, _, done, mass = _quadrupling_round(rank, k, idx,
-                                                     with_stats)
-        traj.append(mass)
-        k *= 4
-        rounds += 1
-    if with_stats:
-        return sa, k, traj[:TRAJ_SLOTS], rounds
-    return sa
-
-
 # ---------------------------------------------------------------------------
-# Two-phase engine: full-width rounds until the tie mass fits a compact
-# budget, then tie-compacted rounds over just the tied lanes, with
-# POSITIONAL ranks (rank = sorted index of the first member of the
-# suffix's tie class), so tie groups refine inside disjoint intervals.
+# One doubling loop for both engines. The classic engine runs it until
+# every rank is distinct (m_cap = 0); the two-phase engine stops it once the
+# tie mass fits a compact budget, then runs tie-compacted rounds over just
+# the tied lanes, with POSITIONAL ranks (rank = sorted index of the first
+# member of the suffix's tie class), so tie groups refine inside disjoint
+# intervals.
 # ---------------------------------------------------------------------------
 
 TWO_PHASE_MIN = 1 << 20   # below: the classic engine
 TIE_CAP_FRAC = 8          # phase 2 starts once ties <= n / 8
 
 
-def _doubling_phase1(words, h0: int, index_dtype, m_cap: int):
-    """Classic dense-rank doubling that stops early once the TIE MASS
-    (suffixes in tie groups of size >= 2) fits ``m_cap``.
+class _Doubled(NamedTuple):
+    """The state a doubling loop stops in."""
+    sa: torch.Tensor     # the suffixes, sorted by their first k characters
+    dense: torch.Tensor  # their dense ranks
+    k: int
+    done: bool           # every rank is distinct
+    mass: int | None     # the tie mass, None where it was not read
+    rounds: int          # quadrupling rounds run
+    traj: list           # the mass after the initial sort and each round
+    m_cap: int           # the loop's stop mass (0: the classic engine)
 
-    Returns (rank, sa_sorted, dense_sorted, k, done, tie_mass), the last
-    three as Python values."""
+
+def _doubling(words, h0: int, index_dtype, m_cap: int = 0,
+              stats=None) -> _Doubled:
+    """Dense-rank doubling given initial key words that order suffixes by
+    their first ``h0`` characters. ``idx`` rides as a payload: tied keys
+    get equal dense ranks, so its order inside a tie is irrelevant.
+
+    Stops when every rank is distinct, once ``k >= 2 n``, or once the TIE
+    MASS (suffixes in tie groups of size >= 2) is at most ``m_cap``: 0
+    only when the ranks are distinct, so ``m_cap = 0`` (the classic
+    engine) runs to distinct ranks. The mass is read, in each round's one
+    readback, where something reads it: ``m_cap > 0`` or a ``stats`` dict
+    (for the trajectory ``_two_phase_build`` records)."""
     n = words[0].shape[0]
     idx = torch.arange(n, dtype=index_dtype, device=words[0].device)
-    rank, sa, dense, done, mass = _initial_round(words, idx, True)
-    k = h0
-    while not done and k < 2 * n and mass > m_cap:
-        rank, sa, dense, done, mass = _quadrupling_round(rank, k, idx, True)
+    with_mass = m_cap > 0 or stats is not None
+    rank, sa, dense, done, mass = _initial_round(words, idx, with_mass)
+    traj, k, rounds = [mass], h0, 0
+    while not done and k < 2 * n and (mass is None or mass > m_cap):
+        rank, sa, dense, done, mass = _quadrupling_round(rank, k, idx,
+                                                         with_mass)
+        traj.append(mass)
         k *= 4
-    return rank, sa, dense, k, done, mass
-
-
-def _phase1_padded(text, init_words: int, index_dtype, m_cap: int):
-    words = _initial_words(text, init_words)
-    return _doubling_phase1(words, 3 * init_words, index_dtype, m_cap)
+        rounds += 1
+    return _Doubled(sa, dense, k, done, mass, rounds, traj, m_cap)
 
 
 def _packed_words(codes: torch.Tensor, n_words: int, bits: int,
@@ -327,12 +324,6 @@ def _packed_words(codes: torch.Tensor, n_words: int, bits: int,
                 comp = part if comp is None else (comp << (bits * w)) | part
                 off += w
         return [shifted(comp, w * cpw) for w in range(n_words)]
-
-
-def _phase1_packed(codes, n_words: int, bits: int, cpw: int, index_dtype,
-                   m_cap: int):
-    words = _packed_words(codes, n_words, bits, cpw)
-    return _doubling_phase1(words, n_words * cpw, index_dtype, m_cap)
 
 
 def _to_positional(dense_sorted: torch.Tensor, sa_sorted: torch.Tensor):
@@ -385,18 +376,24 @@ def _final_sa(rank: torch.Tensor) -> torch.Tensor:
     return _invert_permutation(rank, idx)
 
 
-def _two_phase_build(phase1_state, n_pad: int, stats=None) -> torch.Tensor:
-    """Host loop: finish a phase-1 state to the full SA. ``stats``
-    receives the phase-1 stop state and the phase-2 round count."""
-    _, sa_sorted, dense_sorted, k, done, p1_mass = phase1_state
+def _two_phase_build(state: _Doubled, n_pad: int, stats=None) -> torch.Tensor:
+    """Host loop: finish a doubling state to the full SA. A done state is
+    its sorted suffixes (always so for ``m_cap = 0``); otherwise phase 2
+    refines the ties. ``stats`` receives the engine's internals: the
+    classic engine's rounds, ``h_final`` and tie trajectory, or the
+    two-phase engine's stop state and phase-2 rounds."""
+    k = state.k
     if stats is not None:
-        stats["h_phase1"] = int(k)
-        stats["tie_mass_at_switch"] = int(p1_mass)
-        stats["phase2_rounds"] = 0
-    if done:
-        return sa_sorted
+        if state.m_cap == 0:
+            stats.update(rounds=state.rounds, h_final=k,
+                         tie_trajectory=state.traj[:TRAJ_SLOTS])
+        else:
+            stats.update(h_phase1=k, tie_mass_at_switch=state.mass,
+                         phase2_rounds=0)
+    if state.done:
+        return state.sa
     with record_function("T1_to_positional"):
-        rank, tied_idx_full, mass = _to_positional(dense_sorted, sa_sorted)
+        rank, tied_idx_full, mass = _to_positional(state.dense, state.sa)
     m_pad = min(bucket_size(max(mass, 1), minimum=256), n_pad)
     tied_idx = tied_idx_full[:m_pad]
     rounds = 0
@@ -415,25 +412,14 @@ def _two_phase_build(phase1_state, n_pad: int, stats=None) -> torch.Tensor:
 
 
 def _suffix_array_padded(text: torch.Tensor, init_words: int = INIT_WORDS,
-                         index_dtype=I32, with_stats: bool = False):
+                         index_dtype=I32) -> torch.Tensor:
     """Suffix array of a PAD-padded int32 text: the full permutation of
     [0, n_pad), the exact suffix array of the padded sequence with
     past-the-end lowest. Its first ``pad_len`` slots are the all-PAD
     suffixes in a defined order, shortest first (``n_pad - 1`` down to
     ``n``); the text's suffixes follow."""
-    words = _initial_words(text, init_words)
-    return _doubling_core(words, 3 * init_words, index_dtype,
-                          with_stats=with_stats)
-
-
-def _suffix_array_packed(codes: torch.Tensor, n_words: int, bits: int,
-                         cpw: int, index_dtype=I32, with_stats: bool = False):
-    """Doubling over dense-coded initial words (order-preserving codes in
-    [1, sigma], 0 = padding): the first sort orders by n_words*cpw
-    characters."""
-    words = _packed_words(codes, n_words, bits, cpw)
-    return _doubling_core(words, n_words * cpw, index_dtype,
-                          with_stats=with_stats)
+    return _doubling(_initial_words(text, init_words), 3 * init_words,
+                     index_dtype).sa
 
 
 # Routing constants, copied from the JAX package so that both take the
@@ -581,20 +567,6 @@ TWO_PHASE_FORCE = False  # tests flip this to cover every class
 
 PERIODIC_MIN_TILES = 8
 PERIODIC_MAX_PERIOD = 1 << 22
-
-
-def _exact_min_period(arr: np.ndarray) -> int | None:
-    """The minimal exact global period q of ``arr``, or None."""
-    n = int(arr.size)
-    if n < 4 * PROBE_LEN:
-        return None
-    window = arr[:min(n, PROBE_WINDOW)].tobytes()
-    p = window.find(window[:PROBE_LEN], 1)
-    if p == -1 or p > PERIODIC_MAX_PERIOD:
-        return None
-    if not np.array_equal(arr[p:], arr[:n - p]):
-        return None
-    return p
 
 
 _PROBE_ANCHORS = (0, 7 * PROBE_LEN + 1, (1 << 16) + 13)
@@ -795,42 +767,30 @@ def device_build_closure(arr: np.ndarray, n_pad: int, index_dtype=I32,
     two_phase = n_pad >= TWO_PHASE_MIN and (
         TWO_PHASE_FORCE or plan is None
         or (sigma >= TWO_PHASE_SIGMA_MIN and not repeat_hit))
-    m_cap = n_pad // TIE_CAP_FRAC
-    if stats is not None:
-        stats.update(engine_family="two_phase" if two_phase else "classic",
-                     sigma=sigma, repeat_hit=bool(repeat_hit))
-
-    def classic(run):
-        if stats is None:
-            return run(False)
-        sa, k, traj, rounds = run(True)
-        stats.update(rounds=rounds, h_final=k, tie_trajectory=traj)
-        return sa
-
     if plan is not None:
         lut, bits, cpw, n_words = plan
         with span("build.pack"):
             c_dev = _code_text(t_dev, n, lut)
         del t_dev  # the rounds read the codes alone
-        label = f"adaptive({bits}b x {cpw * n_words}ch)"
-        if stats is not None:
-            stats.update(h0=cpw * n_words)
-        if two_phase:
-            return (lambda: _two_phase_build(
-                _phase1_packed(c_dev, n_words, bits, cpw, index_dtype,
-                               m_cap), n_pad, stats=stats),
-                    label + "+2phase")
-        return (lambda: classic(lambda ws: _suffix_array_packed(
-            c_dev, n_words, bits, cpw, index_dtype=index_dtype,
-            with_stats=ws)), label)
-    iw = pick_init_words(n_pad)
-    label = f"ladder({iw}w)"
-    if stats is not None:
-        stats.update(h0=3 * iw)
+        h0 = cpw * n_words
+        label = f"adaptive({bits}b x {h0}ch)"
+        words = functools.partial(_packed_words, c_dev, n_words, bits, cpw)
+    else:
+        iw = pick_init_words(n_pad)
+        h0 = 3 * iw
+        label = f"ladder({iw}w)"
+        words = functools.partial(_initial_words, t_dev, iw)
+    m_cap = 0
     if two_phase:
-        return (lambda: _two_phase_build(
-            _phase1_padded(t_dev, iw, index_dtype, m_cap), n_pad,
-            stats=stats), label + "+2phase")
-    return (lambda: classic(lambda ws: _suffix_array_padded(
-        t_dev, init_words=iw, index_dtype=index_dtype, with_stats=ws)),
-            label)
+        m_cap = n_pad // TIE_CAP_FRAC
+        label += "+2phase"
+    if stats is not None:
+        stats.update(engine_family="two_phase" if two_phase else "classic",
+                     sigma=sigma, repeat_hit=bool(repeat_hit), h0=h0)
+
+    def dispatch():
+        # The words are made anew each dispatch: _key_pads writes them.
+        state = _doubling(words(), h0, index_dtype, m_cap, stats)
+        return _two_phase_build(state, n_pad, stats)
+
+    return dispatch, label

@@ -31,6 +31,7 @@ through ops/lcp.py.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Sequence
 
 import numpy as np
@@ -76,6 +77,50 @@ def _resolve_small_sais():
 # TPU host (the parity rule of ROADMAP.md); the port's own crossover waits
 # for the port bench.
 AUTO_NATIVE_MAX = 1 << 22
+
+
+def build_array(data, engine: str, padding: str, index_dtype: str,
+                device: torch.device, stats: dict | None = None) -> np.ndarray:
+    """The suffix array of ``data`` (bytes or a uint8 array) by
+    ``engine``, the one place that decides it: resolves ``"auto"``,
+    checks the engine and the length, and annotates the open ``build``
+    root with the engine, ``n``, the route label and ``n_pad``. ``stats``
+    (optional dict) gains the engine's keys of utils/metrics.py, timing
+    included; ``padding`` and ``index_dtype`` apply to the device engine
+    (its ``uint64`` array for "u64")."""
+    n = len(data)
+    if engine == "auto":
+        engine = "device"
+        if n <= AUTO_NATIVE_MAX and native.available():
+            engine = "native"
+    if engine not in ("device", "sais", "native"):
+        raise ValueError(f"unknown engine: {engine!r}")
+    if n > MAX_TEXT_LEN:
+        raise ValueError("text is too large (max 2^32 - 1 bytes)")
+    annotate(engine=engine, n=n)
+    if engine == "device":
+        # Annotates and times its dispatch itself.
+        return prefix_doubling.suffix_array_bytes(
+            data, padding=padding, index_dtype=index_dtype, device=device,
+            stats=stats)
+    if engine == "sais":
+        label, family, n_pad = "sais-device", "sais", bucket_size(max(n, 1))
+    else:
+        label, family, n_pad = "native-sais", "native", n
+    annotate(route=label, n_pad=n_pad)
+    extra: dict = {}  # the SA-IS pipeline's recursion depth and rounds
+    t0 = time.perf_counter()
+    table = (sais.suffix_array_sais_recursive(data, stats=extra,
+                                              device=device)
+             if engine == "sais" else native.sais(data))
+    dt = time.perf_counter() - t0
+    if stats is not None:
+        stats.update(engine=label, engine_family=family, n_pad=n_pad)
+        if engine == "sais":
+            stats["recursion_depth"] = extra.get("depth", 0)
+        stats.update(elapsed_s=round(dt, 6),
+                     bytes_per_s=round(n / max(dt, 1e-12), 1))
+    return table
 
 
 def _as_bytes(text) -> tuple[bytes, bool]:
@@ -144,8 +189,9 @@ class SuffixTable:
         # Only called for attributes missing from the instance: no cost
         # for fully initialized tables.
         if name in type(self)._LAZY_NONE:
-            self.__dict__[name] = None
-            return None
+            # setdefault, one step: a value another thread stored since
+            # the miss (the host handle) is kept, not reset to None.
+            return self.__dict__.setdefault(name, None)
         if name == "_bytes":
             v = np.frombuffer(self._raw, dtype=np.uint8)
             self.__dict__[name] = v
@@ -196,9 +242,9 @@ class SuffixTable:
         - ``"auto"``: native for texts of at most AUTO_NATIVE_MAX bytes
           when the native library builds, device otherwise.
 
-        ``collect_stats=True`` builds through utils/metrics.py and attaches
-        its stats dict as ``build_stats`` (route label, family, rounds,
-        bytes/s, ...).
+        ``collect_stats=True`` runs the same build and attaches its stats
+        dict as ``build_stats`` (utils/metrics.py: route label, family,
+        rounds, bytes/s, ...).
 
         Each call but the small-build fast path is a ``build`` root of the
         recorder (utils/profiling.py; attrs ``engine``, ``route``, ``n``,
@@ -221,39 +267,16 @@ class SuffixTable:
         with root("build", engine=engine):
             dev = resolve_device(device)
             raw, was_str = _as_bytes(text)
-            if engine == "auto":
-                engine = "device"
-                if len(raw) <= AUTO_NATIVE_MAX and native.available():
-                    engine = "native"
-            if engine not in ("device", "sais", "native"):
-                raise ValueError(f"unknown engine: {engine!r}")
-            if len(raw) > MAX_TEXT_LEN:
-                raise ValueError("text is too large (max 2^32 - 1 bytes)")
-            annotate(engine=engine, n=len(raw))
+            stats = None
             if collect_stats:
-                from suffix_torch.utils.metrics import build_stats
+                from suffix_torch.utils.metrics import stats_header
 
-                table, stats = build_stats(raw, engine=engine,
-                                           index_dtype=index_dtype,
-                                           padding=padding, device=dev)
-                annotate(route=stats["engine"], n_pad=stats["n_pad"])
-                with span("build.finish"):
-                    st = cls(raw, table.astype(np.uint32), _was_str=was_str,
-                             device=dev)
-                st.build_stats = stats
-                return st
-            if engine == "device":
-                table = prefix_doubling.suffix_array_bytes(
-                    raw, padding=padding, index_dtype=index_dtype, device=dev)
-            elif engine == "sais":
-                annotate(route="sais-device",
-                         n_pad=bucket_size(max(len(raw), 1)))
-                table = sais.suffix_array_sais_recursive(raw, device=dev)
-            else:
-                annotate(route="native-sais", n_pad=len(raw))
-                table = native.sais(raw)
+                stats = stats_header(len(raw), index_dtype, dev)
+            table = build_array(raw, engine, padding, index_dtype, dev, stats)
             with span("build.finish"):
-                return cls(raw, table, _was_str=was_str, device=dev)
+                st = cls(raw, table, _was_str=was_str, device=dev)
+            st.build_stats = stats
+            return st
 
     @classmethod
     def new_naive(cls, text, device=None) -> "SuffixTable":

@@ -34,71 +34,51 @@ def _device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
+def stats_header(n: int, index_dtype: str, dev: torch.device) -> dict:
+    """The keys every stats dict opens with; the build fills the rest."""
+    return {"schema": SCHEMA_VERSION, "n_bytes": n,
+            "index_dtype": index_dtype, "device": _device_name(dev)}
+
+
 def build_stats(data, engine: str = "device", index_dtype: str = "u32",
                 padding: str = "pow2", device=None, mesh=None):
     """(suffix array, stats dict) for one instrumented build on ``device``.
 
     ``engine``: "device" (prefix doubling with its routes: periodic,
     patched, adaptive, two-phase, classic), "native" (C++ SA-IS on the
-    host), "sais" (the recursive SA-IS pipeline on the device) or
-    "sharded" (block-bitonic SPMD over ``mesh``, whose ranks all call
-    this; ``None`` = this process alone, a one-rank mesh on ``device``).
+    host), "sais" (the recursive SA-IS pipeline on the device), "auto"
+    (``SuffixTable.new``'s choice; these four run ``table.build_array``,
+    the build ``SuffixTable.new`` runs) or "sharded" (block-bitonic SPMD
+    over ``mesh``, whose ranks all call this; ``None`` = this process
+    alone, a one-rank mesh on ``device``).
     """
-    from suffix_torch.ops.padding import bucket_size
-
-    if engine not in ("device", "native", "sais", "sharded"):
-        raise ValueError(f"unknown engine: {engine!r}")
     dev = mesh.device if mesh is not None else resolve_device(device)
     arr = (np.frombuffer(bytes(data), np.uint8)
            if isinstance(data, (bytes, bytearray))
            else np.asarray(data, np.uint8))
     n = int(arr.size)
-    stats: dict = {"schema": SCHEMA_VERSION, "n_bytes": n,
-                   "index_dtype": index_dtype, "device": _device_name(dev)}
-    if engine == "device":
-        from suffix_torch.ops import prefix_doubling
+    stats = stats_header(n, index_dtype, dev)
+    if engine != "sharded":
+        from suffix_torch.table import build_array
 
-        # The route label, n_pad, the engine's internals and the timing
-        # of the dispatch alone, as the JAX package reports them.
-        sa = prefix_doubling.suffix_array_bytes(
-            arr, padding=padding, index_dtype=index_dtype, device=dev,
-            stats=stats)
-        return sa, stats
-    if engine == "native":
-        from suffix_torch import native
+        sa = build_array(arr, engine, padding, index_dtype, dev, stats)
+        return np.asarray(sa), stats
+    from suffix_torch.parallel import launch
 
-        t0 = time.perf_counter()
-        sa = native.sais(arr)
-        dt = time.perf_counter() - t0
-        stats.update(engine="native-sais", engine_family="native", n_pad=n)
-    elif engine == "sharded":
-        from suffix_torch.parallel import launch
-
-        sa, dt, d = (_timed_sharded(mesh, arr, index_dtype)
-                     if mesh is not None else launch.run(_timed_sharded, 1, arr, index_dtype,
-                                     device=dev))
-        logd = max(1, d).bit_length() - 1
-        stats.update(
-            engine=f"sharded(d={d})", engine_family="sharded", n_pad=n,
-            devices=d,
-            collective={
-                # The analytic per-round volume: bitonic merge-split
-                # stages and halo window shifts, bytes a rank.
-                "bitonic_stages_per_round": logd * (logd + 1) // 2,
-                "bytes_per_device_per_stage": 3 * 8 * (n // max(d, 1)),
-            })
-    else:
-        from suffix_torch.ops.sais import suffix_array_sais_recursive
-
-        s: dict = {}
-        t0 = time.perf_counter()
-        sa = suffix_array_sais_recursive(arr, stats=s, device=dev)
-        dt = time.perf_counter() - t0
-        stats.update(engine="sais-device", engine_family="sais",
-                     n_pad=bucket_size(max(n, 1)),
-                     recursion_depth=s.get("depth", 0))
-    stats.update(elapsed_s=round(dt, 6),
-                 bytes_per_s=round(n / max(dt, 1e-12), 1))
+    sa, dt, d = (_timed_sharded(mesh, arr, index_dtype) if mesh is not None
+                 else launch.run(_timed_sharded, 1, arr, index_dtype,
+                                 device=dev))
+    logd = max(1, d).bit_length() - 1
+    stats.update(
+        engine=f"sharded(d={d})", engine_family="sharded", n_pad=n,
+        devices=d,
+        collective={
+            # The analytic per-round volume: bitonic merge-split
+            # stages and halo window shifts, bytes a rank.
+            "bitonic_stages_per_round": logd * (logd + 1) // 2,
+            "bytes_per_device_per_stage": 3 * 8 * (n // max(d, 1)),
+        },
+        elapsed_s=round(dt, 6), bytes_per_s=round(n / max(dt, 1e-12), 1))
     return np.asarray(sa), stats
 
 

@@ -35,7 +35,7 @@ def warm(n_bytes: int,
     ``device`` (``None`` = CUDA).
 
     ``alphabet_sizes``: corpus classes whose alphabet-adaptive packed
-    build (ops/prefix_doubling._suffix_array_packed) should be warmed in
+    build (ops/prefix_doubling._packed_words) should be warmed in
     addition to the byte-ladder engine: pass the distinct-byte counts of
     the deployment's corpora (4 = DNA; () to skip).
 
@@ -46,7 +46,7 @@ def warm(n_bytes: int,
     from suffix_torch.ops.padding import PAD, bucket_size
     from suffix_torch.ops.prefix_doubling import (
         ADAPTIVE_PACK_MIN, I32, TIE_CAP_FRAC, TWO_PHASE_MIN, _adaptive_plan,
-        _device_byte_counts, _phase1_padded, _suffix_array_packed,
+        _device_byte_counts, _doubling, _initial_words, _packed_words,
         _suffix_array_padded, _two_phase_build, pick_init_words)
 
     dev = resolve_device(device)
@@ -80,8 +80,8 @@ def warm(n_bytes: int,
         # corpus.
         step(f"two-phase build n={n_pad}",
              lambda: _two_phase_build(
-                 _phase1_padded(t_dev, iw, I32, n_pad // TIE_CAP_FRAC),
-                 n_pad))
+                 _doubling(_initial_words(t_dev, iw), 3 * iw, I32,
+                           n_pad // TIE_CAP_FRAC), n_pad))
     if n_pad >= ADAPTIVE_PACK_MIN:
         # The plan's byte counts (byte_histogram: its library, built on
         # first use, and its occupancy query), as a build counts its text.
@@ -101,7 +101,7 @@ def warm(n_bytes: int,
             step(f"adaptive build n={n_pad} sigma={sigma} "
                  f"({bits}b x {cpw * n_words}ch)",
                  lambda c=c_dev, w=n_words, b=bits, k=cpw:
-                 _suffix_array_packed(c, w, b, k))
+                 _doubling(_packed_words(c, w, b, k), w * k, I32).sa)
     # Query/LCP programs take the REAL table layout: sa[0:n) = suffix
     # array, zero-filled past n (padding suffixes sliced off).
     sa = torch.zeros((n_pad,), dtype=I32, device=dev)

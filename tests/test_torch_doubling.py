@@ -195,13 +195,11 @@ def test_periodic_long_period_and_fallthroughs(jpd, gates):
     block = bytes(rng.integers(0, 26, 997, dtype=np.uint8) + 97)
     assert _assert_parity(jpd, _tiled(block, 997 * 9 + 311)) == \
         "periodic(q=997)"
-    assert pd._exact_min_period(_tiled(b"abab", 323)) == 2
     # One flipped byte: no exact period; both packages take the patched
     # engine.
     flipped = _tiled(bytes(rng.integers(0, 4, 64, dtype=np.uint8) + 97),
                      64 * 20).copy()
     flipped[700] ^= 1
-    assert pd._exact_min_period(flipped) is None
     assert _assert_parity(jpd, flipped).startswith("patched(q=64,")
     # Too few tiles for the closed form.
     few = _tiled(bytes(rng.integers(0, 4, 300, dtype=np.uint8) + 97), 1200)
@@ -462,6 +460,48 @@ def test_rounds_do_not_depend_on_padding(seed):
     assert runs["pow2"]["n_pad"] != runs["fine"]["n_pad"]
     assert runs["pow2"]["rounds"] == runs["fine"]["rounds"]
     assert runs["pow2"]["tie_trajectory"] == runs["fine"]["tie_trajectory"]
+
+
+@pytest.mark.parametrize("gate,route", [({}, "ladder(4w)"),
+                                        ({"ADAPTIVE_PACK_MIN": 16},
+                                         "adaptive(3b x ")],
+                         ids=["ladder", "adaptive"])
+def test_classic_route_reads_the_tie_mass_for_stats_only(monkeypatch, gate,
+                                                         route):
+    """The classic route reads the tie mass only where something reads
+    it: never in a plain build, once for the initial sort and once a
+    round with ``collect_stats``. The array, the label, the rounds and
+    the readbacks are the same either way."""
+    for key, value in gate.items():
+        monkeypatch.setattr(pd, key, value)
+    calls = []
+    tie_mass = pd._tie_mass
+
+    def spy(diff):
+        calls.append(True)
+        return tie_mass(diff)
+
+    monkeypatch.setattr(pd, "_tie_mass", spy)
+    raw = _with_copies(np.random.default_rng(7), 3000, 4).tobytes()
+    runs = []
+    for collect_stats in (False, True):
+        calls.clear()
+        before = {r["id"] for r in P.finished("build")}
+        st_ = SuffixTable.new(raw, device="cpu", collect_stats=collect_stats)
+        (job,) = [r for r in P.finished("build") if r["id"] not in before]
+        assert job["attrs"]["route"].startswith(route)
+        runs.append((st_, job, len(calls)))
+    (plain, job0, calls0), (stats_st, job1, calls1) = runs
+    assert np.array_equal(plain.table(), naive_table(raw))
+    assert np.array_equal(plain.table(), stats_st.table())
+    assert job0["attrs"]["route"] == job1["attrs"]["route"] \
+        == stats_st.build_stats["engine"]
+    rounds = job0["counters"]["rounds"]
+    assert rounds == job1["counters"]["rounds"] \
+        == stats_st.build_stats["rounds"] >= 1
+    assert job0["counters"]["host_syncs"] == job1["counters"]["host_syncs"]
+    assert calls0 == 0
+    assert calls1 == rounds + 1
 
 
 @pytest.mark.parametrize("n", [0, 1, 5, 16, 100, 600])
