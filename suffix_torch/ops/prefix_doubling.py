@@ -55,14 +55,17 @@ inside ``SuffixTable.new``'s ``build`` root: ``build.probe``,
 ``build.upload`` (the text's bytes), ``build.pack`` (the widening and
 the coding on the device) and ``build.plan`` (the count, its readback and
 ``_adaptive_plan``) in ``device_build_closure``; ``build.dispatch`` (the
-rounds, to the device's end), ``build.download`` and ``build.finish`` in
-``suffix_array_bytes``; ``build.readback`` around each host read of a
-device value. Counters: ``rounds`` (quadrupling rounds of both phases),
-``host_syncs`` (one a readback), ``pad_slots`` (padding slots given
-distinct keys, read with the initial sort's readback; 0 when the text
-fills its bucket), ``h2d_bytes`` and ``d2h_bytes`` (the pageable copies of
-the staged input and of the suffix array; 0 on the CPU, where nothing is
-copied; the 1 KiB LUT and the readbacks are not counted). The patched
+rounds, to the device's end), ``build.download`` (the suffix array's
+``n`` kept slots, the padding sliced off on the device, copied once into
+the host array the table keeps) and ``build.finish`` (that array taken as
+unsigned by a view, no cast) in ``suffix_array_bytes``;
+``build.readback`` around each host read of a device value. Counters:
+``rounds`` (quadrupling rounds of both phases), ``host_syncs`` (one a
+readback), ``pad_slots`` (padding slots given distinct keys, read with
+the initial sort's readback; 0 when the text fills its bucket),
+``h2d_bytes`` and ``d2h_bytes`` (the pageable copies of the staged input
+and of the suffix array's ``n`` kept slots; 0 on the CPU, where nothing
+is copied; the 1 KiB LUT and the readbacks are not counted). The patched
 route's rotation-width build (``ops/patched.py``) is a ``build.rotation``
 root of its own, inside the job's ``build.probe``.
 
@@ -539,18 +542,23 @@ def suffix_array_bytes(data, padding: str = "pow2", index_dtype: str = "u32",
         if sa_dev.device.type == "cuda":
             # The rounds' end on the device: the download is timed alone.
             torch.cuda.synchronize(sa_dev.device)
+    # Padding suffixes (all-PAD) sort strictly first: the text's are the
+    # last n slots, a view on the device. Only they come down, once, into
+    # the host array the table keeps (on the CPU a copy of its own, so the
+    # table shares no memory with the dispatch).
     with span("build.download"):
-        sa_full = sa_dev.cpu().numpy()
-    count("d2h_bytes", sa_full.nbytes if sa_dev.device.type != "cpu" else 0)
+        sa = sa_dev[n_pad0 - n:].to("cpu", copy=True).numpy()
+    count("d2h_bytes", sa.nbytes if sa_dev.device.type != "cpu" else 0)
     dt = time.perf_counter() - t0
     if stats is not None:
         stats.update(engine=label, n_pad=n_pad0)
         stats.setdefault("engine_family", "device")
         stats.update(elapsed_s=round(dt, 6),
                      bytes_per_s=round(n / max(dt, 1e-12), 1))
-    # Padding suffixes (all-PAD) sort strictly first; drop them.
+    # Positions are below 2^31 (2^63 on u64): the signed values are the
+    # unsigned ones, taken by a view with no host copy.
     with span("build.finish"):
-        return sa_full[n_pad0 - n:].astype(out_dtype)
+        return sa.view(out_dtype)
 
 
 # Two-phase routing gate, copied from the JAX package.

@@ -758,5 +758,88 @@ def test_cuda_staging_frees_the_text_and_counts_its_copies(cuda_device):
     (got,) = [r for r in P.finished("build")
               if r["id"] not in {b["id"] for b in before}]
     assert got["counters"]["h2d_bytes"] == n
-    assert got["counters"]["d2h_bytes"] == 4 * n_pad
+    # The padding slots stay on the card: only the n kept slots come down.
+    assert got["counters"]["d2h_bytes"] == 4 * n
     assert kernels.byte_histogram.launches == launches + 1
+
+
+def _near_periodic_small() -> np.ndarray:
+    """A 101-byte period with one defect: the patched route at
+    ``ADAPTIVE_PACK_MIN = 16``."""
+    block = np.random.default_rng(11).integers(97, 123, 101, dtype=np.uint8)
+    arr = _tiled(block.tobytes(), 101 * 37 + 19).copy()
+    arr[2020] = ord("!")
+    return arr
+
+
+# The array each route returns is the table as the table keeps it. Each
+# case: (text, gates, index_dtype, route label prefix).
+KEPT_CASES = {
+    "periodic": (lambda: _tiled(b"abcz", 402), {"ADAPTIVE_PACK_MIN": 16},
+                 "u32", "periodic"),
+    "patched": (_near_periodic_small, {"ADAPTIVE_PACK_MIN": 16}, "u32",
+                "patched"),
+    "adaptive": (lambda: np.random.default_rng(1).integers(
+        97, 101, 600, dtype=np.uint8), {"ADAPTIVE_PACK_MIN": 16}, "u32",
+        "adaptive"),
+    "two_phase": (lambda: _planted(np.random.default_rng(2), 1500),
+                  {"ADAPTIVE_PACK_MIN": 16, "TWO_PHASE_MIN": 16,
+                   "TWO_PHASE_FORCE": True}, "u32", "adaptive"),
+    "ladder": (lambda: np.frombuffer(b"banana-mississippi" * 40, np.uint8),
+               {}, "u32", "ladder"),
+    "full_bucket": (lambda: np.random.default_rng(3).integers(
+        97, 101, 4096, dtype=np.uint8), {}, "u32", "ladder"),
+    "u64": (lambda: np.frombuffer(b"banana-mississippi" * 40, np.uint8),
+            {}, "u64", "ladder"),
+    "empty": (lambda: np.zeros(0, np.uint8), {}, "u32", "ladder"),
+}
+
+
+def _host_bytes(arr: np.ndarray) -> int:
+    """Bytes of the host memory behind ``arr``: the buffer of the array
+    that owns it, or the storage of the tensor it views."""
+    base = arr
+    while isinstance(base, np.ndarray) and base.base is not None:
+        base = base.base
+    if isinstance(base, torch.Tensor):
+        return base.untyped_storage().nbytes()
+    return base.nbytes
+
+
+def _check_kept_table(monkeypatch, name: str, device) -> None:
+    """Build ``KEPT_CASES[name]`` twice on ``device``: each array is the
+    oracle's SA, unsigned, of length n, C-contiguous and writable, shares
+    no memory with the other, and holds exactly its n slots of host
+    memory (no padding kept alive)."""
+    make, gate, index_dtype, route = KEPT_CASES[name]
+    for key, value in gate.items():
+        monkeypatch.setattr(pd, key, value)
+    arr = make()
+    n = arr.size
+    out_dtype = np.uint64 if index_dtype == "u64" else np.uint32
+    stats: dict = {}
+    got = pd.suffix_array_bytes(arr, index_dtype=index_dtype,
+                                device=device, stats=stats)
+    assert stats["engine"].startswith(route), stats["engine"]
+    if name == "full_bucket":
+        assert stats["n_pad"] == n
+    assert got.dtype == out_dtype and got.shape == (n,)
+    assert got.flags["C_CONTIGUOUS"] and got.flags["WRITEABLE"]
+    assert np.array_equal(got, naive_table(arr.tobytes()))
+    assert _host_bytes(got) == got.itemsize * n
+    again = pd.suffix_array_bytes(arr, index_dtype=index_dtype,
+                                  device=device)
+    assert np.array_equal(again, got)
+    assert not np.shares_memory(got, again)
+
+
+@pytest.mark.parametrize("name", sorted(KEPT_CASES))
+def test_returned_table_is_its_own_n_slots(monkeypatch, name):
+    _check_kept_table(monkeypatch, name, torch.device("cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(KEPT_CASES))
+def test_cuda_returned_table_is_its_own_n_slots(cuda_device, monkeypatch,
+                                                name):
+    _check_kept_table(monkeypatch, name, cuda_device)
